@@ -5,25 +5,37 @@
 
 Phases, one line each (an uncaught failure exits nonzero):
 
-1. build    — nvcc builds the three SHA-256 kernels from ``merklekv_tpu_torch/csrc``
-              into ``build/torch_kernels/``; prints the build time, nvcc's
-              register report, and the card's name and power limit.
+1. build    — nvcc builds the kernels from ``merklekv_tpu_torch/csrc`` (one nvcc
+              per source, started together, then one link) into one library
+              under ``build/torch_kernels/``;
+              prints the build time, nvcc's register report, and the card's
+              name and power limit.
 2. kernels  — each kernel against its plain PyTorch version on the card, bit
               for bit, over several shapes (N = 1..1M, multi-block messages
               with nblocks 0..3, odd level sizes, P = 16 and 65536), plus a
-              few hundred leaves and nodes against ``hashlib``.
+              few hundred leaves and nodes against ``hashlib``; the fused
+              path-rehash kernel on cloned 2^20-leaf levels for k = 1, a
+              sibling pair, the first and last leaf, one whole subtree,
+              every leaf, 257, 4096 and 65,536 random leaves, and the
+              serving path's own input (4096 random one-block leaves,
+              [4096, 1, 16]); the promotion-chain kernel for n = 1, 2, 3,
+              2^19+1, 1,000,000, 2^20.
 3. rebuild  — ``anti_entropy_forward`` at 10M keys (``bench.py::_make_kv``
               shapes) and 8 replicas with 1% of keys diverged per non-reference
               replica: root against the plain version on the card, a
               131,075-key prefix root against the golden CPU tree, counts and
               masks against the injected divergence; median of timed runs.
 4. serving  — ``DeviceMerkleState`` over 1M keys: 20 value batches of 4096
-              keys and one structural batch, every root and TREELEVEL slice
-              (each level's last node included) against the golden
-              ``CpuMerkleState``; then sustained writes/s.
+              keys (each exactly one fused path-rehash launch and no other
+              kernel of ours) and one structural batch, every root and
+              TREELEVEL slice (each level's last node included) against the
+              golden ``CpuMerkleState``; then sustained writes/s.
 5. kernels line — per kernel: launches on the main path (phases 3 and 4,
-              each counted from 0), its time, the plain version's time, and
-              its bound.
+              each counted from 0), its device time (torch.profiler kernel
+              time), the plain version's time, and its bound; for the two
+              serving kernels the ``[times]`` line also gives a modelled
+              latency floor (not in the kernels line: it assumes a clock and
+              an issue rate, and measures nothing).
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, the script exits nonzero and prints no result.
@@ -68,6 +80,17 @@ LOGIC_MSG_BLOCK, ADDS_MSG_BLOCK = 64 * 10 + 48 * 8, 64 * 4 + 48 * 2 + 8
 LOGIC_PAD_BLOCK, ADDS_PAD_BLOCK = 64 * 10, 64 * 4 + 8
 LOGIC_NODE = LOGIC_MSG_BLOCK + LOGIC_PAD_BLOCK
 ADDS_NODE = ADDS_MSG_BLOCK + ADDS_PAD_BLOCK
+# Modelled latency floor of a serial chain of hashes, one thread (so one warp)
+# per hash, printed in the [times] line only: a warp issues its shift/logic instructions through its SM
+# sub-partition's 16 INT32 lanes, 2 cycles per warp instruction whatever the
+# number of active lanes, at the 1.98 GHz boost clock: 3,328 cycles for a
+# node hash. (A round's dependent chain, about three ALU instructions, is
+# shorter than that issue time.) Memory latency comes on top.
+WARP_CYCLES_PER_OP = 2
+CLOCK_HZ = 1.98e9
+# Kernels the main path (phases 3 and 4) must launch; node_pairs is held
+# against its plain version in phase 2 but no longer runs on the main path.
+MAIN_PATH_KERNELS = ("leaf", "node_level", "path_rehash", "promotion_chain")
 
 
 def log(msg: str) -> None:
@@ -86,6 +109,13 @@ def bound_ms(nbytes: float, logic: float, adds: float) -> float:
 def bound_by(nbytes: float, logic: float, adds: float) -> str:
     by_bytes, by_ops = _bound_s(nbytes, logic, adds)
     return "bytes" if by_bytes >= by_ops else "operations"
+
+
+def latency_floor_ms(logic: int) -> float:
+    """Modelled least time of hashes that depend on each other, ``logic``
+    shift/logic ops in all, issued by one warp (assumed clock and issue rate,
+    not a measurement)."""
+    return logic * WARP_CYCLES_PER_OP / CLOCK_HZ * 1e3
 
 
 def gpu_line() -> str:
@@ -116,6 +146,30 @@ def event_ms(fn, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def profiled_kernel_ms(fn, kernel: str, reps: int, warmup: int = 2) -> tuple[float, int]:
+    """Mean device time of the CUDA kernel whose name contains ``kernel``,
+    per launch, over ``reps`` calls of ``fn`` (torch.profiler kernel time:
+    the kernel's own time on the card, without the host's call overhead),
+    and the number of launches the profiler recorded. The profiler can drop
+    some records of a short kernel (one H100 run kept 158 of 200), so the
+    mean is over those it kept."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    times = [ev.time_range.elapsed_us() for ev in prof.events()
+             if ev.device_type == DeviceType.CUDA and kernel in ev.name]
+    if not 0 < len(times) <= reps:
+        raise AssertionError(f"profiler saw {len(times)} launches of {kernel}, expected {reps}")
+    return sum(times) / len(times) / 1e3, len(times)
 
 
 def u32_max_abs_err(a, b) -> int:
@@ -163,7 +217,8 @@ def phase_build() -> dict:
     total = time.perf_counter() - t0
     regs = [ln.strip() for ln in k.build_log.splitlines()
             if "registers" in ln or "Compiling entry" in ln]
-    log(f"[build] nvcc {k.build_seconds:.2f} s, load {total:.2f} s: {k.path.name}")
+    log(f"[build] nvcc {k.build_seconds:.2f} s (one compile per source, in parallel, "
+        f"then one link), load {total:.2f} s: {k.path.name}")
     for ln in regs:
         log(f"[build] ptxas {ln}")
     return {"seconds": total}
@@ -232,6 +287,69 @@ def phase_kernels(dev, rng: np.random.Generator, sizes=(1, 2, 3, 4097, 1 << 20))
     sync()
     log(f"[kernels] {checks} shape checks bit-exact vs plain on the card, "
         f"300 leaves + 278 nodes exact vs hashlib (tolerance: exact equality)")
+    return {"max_abs_err": errs}
+
+
+def path_sets(rng: np.random.Generator, c: int) -> dict:
+    """The position sets the fused kernel is held to (sorted, unique)."""
+    def rand(k):
+        return np.sort(rng.choice(c, size=k, replace=False))
+
+    return {
+        "k=1": np.array([c // 3]),
+        "sibling pair": np.array([24690, 24691]),
+        "first and last leaf": np.array([0, c - 1]),
+        "one subtree (4096 leaves)": np.arange(7 * 4096, 8 * 4096),
+        "every leaf": np.arange(c),
+        "257 random": rand(257),
+        "4096 random": rand(4096),
+        "65536 random": rand(65536),
+    }
+
+
+def phase_paths(dev, rng: np.random.Generator, depth: int = 20) -> dict:
+    """The fused path-rehash and promotion-chain kernels against their plain
+    versions on the card, bit for bit, on cloned 2^depth-leaf levels."""
+    import torch
+
+    from merklekv_tpu_torch.merkle.incremental import _reduce_levels
+    from merklekv_tpu_torch.ops import merkle_paths as mp
+
+    c = 1 << depth
+    base = _reduce_levels(rand_words(rng, (c, 8), dev))
+    errs = {"path_rehash": 0, "promotion_chain": 0}
+    # (what, sorted positions, blocks per leaf, least valid block count)
+    cases = [(what, pos, 2, 0) for what, pos in path_sets(rng, c).items()]
+    cases.append((f"the serving shape [{BATCH}, 1, 16] at {BATCH} random positions",
+                  np.sort(rng.choice(c, size=BATCH, replace=False)), 1, 1))
+    for what, pos, nblk, nb_lo in cases:
+        k = len(pos)
+        blocks = rand_words(rng, (k, nblk, 16), dev)
+        nblocks = torch.from_numpy(
+            rng.integers(nb_lo, nblk + 1, size=k, dtype=np.int32)).to(dev)
+        counters = torch.zeros(c - 1, dtype=torch.int32, device=dev)
+        got = [lv.clone() for lv in base]
+        want = [lv.clone() for lv in base]
+        mp.path_rehash_cuda(got, counters, blocks, nblocks, pos)
+        mp.path_rehash(want, blocks, nblocks, pos)
+        err = max(u32_max_abs_err(g, w) for g, w in zip(got, want))
+        errs["path_rehash"] = max(errs["path_rehash"], err)
+        if err:
+            raise AssertionError(f"path_rehash differs from its plain version on {what}: {err}")
+        if counters.any():
+            raise AssertionError(f"path_rehash left arrival counters set on {what}")
+        del got, want
+    for n in (1, 2, 3, c // 2 + 1, min(1_000_000, c - 1), c):
+        err = u32_max_abs_err(mp.promotion_chain_cuda(base, n), mp.promotion_chain(base, n))
+        errs["promotion_chain"] = max(errs["promotion_chain"], err)
+        if err:
+            raise AssertionError(f"promotion_chain differs from its plain version at n={n}: {err}")
+    sync()
+    log(f"[kernels] path_rehash bit-exact vs plain on cloned 2^{depth}-leaf levels for "
+        f"{'; '.join(case[0] for case in cases)}; every level compared whole, padding "
+        f"included; counters zero after each; promotion_chain "
+        f"bit-exact for n = 1, 2, 3, 2^{depth - 1}+1, {min(1_000_000, c - 1)}, 2^{depth} "
+        f"(tolerance: exact equality)")
     return {"max_abs_err": errs}
 
 
@@ -352,7 +470,12 @@ def phase_serving(dev, seed: int, n_tree: int = TREE_KEYS, batch: int = BATCH,
     for b in range(checked):
         idx = rng.integers(0, n_tree, size=batch)
         changes = [(b"inc:%09d" % i, b"u%d-%d" % (b, i)) for i in idx]
+        before = dict(LAUNCHES)
         st.apply(changes)
+        st.flush_pending()
+        delta = {name: LAUNCHES[name] - before[name] for name in LAUNCHES}
+        if delta != {**dict.fromkeys(LAUNCHES, 0), "path_rehash": 1}:
+            raise AssertionError(f"value batch {b} was not one fused launch: {delta}")
         cpu.apply(changes)
         _check_serving(st, cpu, rng, f"value batch {b}")
     # One structural batch: inserts between and after existing keys,
@@ -369,13 +492,14 @@ def phase_serving(dev, seed: int, n_tree: int = TREE_KEYS, batch: int = BATCH,
     _check_serving(st, cpu, rng, "structural batch")
     sync()
     launches = dict(LAUNCHES)
-    if min(launches.values()) < 1:
-        raise AssertionError(f"serving path missed a kernel: {launches}")
+    if min(launches[name] for name in ("leaf", "node_level", "path_rehash",
+                                       "promotion_chain")) < 1 or launches["node_pairs"]:
+        raise AssertionError(f"serving path missed a kernel or ran node_pairs: {launches}")
     if st.structural_batches != 1 or st.incremental_batches != checked:
         raise AssertionError("serving batches took the wrong update path")
     log(f"[serving] {n_tree} keys: build {build_s:.3f} s; {checked} value batches of {batch} "
-        f"+ 1 structural batch: every root and TREELEVEL slice == CpuMerkleState; "
-        f"launches {launches}")
+        f"(each exactly 1 path_rehash launch, 0 node_pairs, 0 leaf) + 1 structural batch: "
+        f"every root and TREELEVEL slice == CpuMerkleState; launches {launches}")
 
     # Timed value batches draw from live keys only: a write to a deleted key
     # is an insert, and would time the structural path instead.
@@ -409,11 +533,28 @@ def phase_serving(dev, seed: int, n_tree: int = TREE_KEYS, batch: int = BATCH,
     return {"launches": launches, "writes_per_s": rate, "batch": one_batch}
 
 
+def path_work(pos: np.ndarray, depth: int) -> dict:
+    """What the fused kernel must do for these sorted positions on a
+    2^depth-leaf tree: distinct touched internal nodes (each hashed once)
+    and untouched siblings (each read once)."""
+    distinct = untouched = 0
+    cur = np.unique(pos)
+    for _ in range(depth):
+        untouched += int(np.count_nonzero(~np.isin(cur ^ 1, cur)))
+        cur = np.unique(cur >> 1)
+        distinct += len(cur)
+    return {"distinct": distinct, "untouched": untouched}
+
+
 def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
-    """Time each kernel at the main path's shapes against its plain version
-    and its bound; build the kernels line."""
+    """Time each kernel at the main path's shapes (device time from
+    torch.profiler) against its plain version and its bound; build the
+    kernels line."""
     import torch
 
+    from merklekv_tpu_torch.merkle.cpu import ref_level_sizes
+    from merklekv_tpu_torch.merkle.incremental import _reduce_levels
+    from merklekv_tpu_torch.ops import merkle_paths as mp
     from merklekv_tpu_torch.ops import sha256 as plain
     from merklekv_tpu_torch.ops.sha256_cuda import (
         leaf_digests_cuda,
@@ -426,29 +567,70 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
     pairs_l, pairs_r = rand_words(rng, (BATCH, 8), dev), rand_words(rng, (BATCH, 8), dev)
     n_blocks_hashed = int(nblocks.clamp(0, nblk).sum().item())
     p_level = n // 2
+
+    # The serving path's shapes: a batch of 4096 one-block leaves at random
+    # positions of the 2^20-leaf tree, and the chain over 1M live keys.
+    depth = (TREE_KEYS - 1).bit_length()
+    tree = _reduce_levels(rand_words(rng, (1 << depth, 8), dev))
+    tree_plain = [lv.clone() for lv in tree]
+    counters = torch.zeros((1 << depth) - 1, dtype=torch.int32, device=dev)
+    pos = np.sort(rng.choice(1 << depth, size=BATCH, replace=False))
+    pblocks = rand_words(rng, (BATCH, 1, 16), dev)
+    pnblocks = torch.ones(BATCH, dtype=torch.int32, device=dev)
+    work = path_work(pos, depth)
+    # The chain hashes once per reference level whose size below is even.
+    sizes = ref_level_sizes(TREE_KEYS)
+    even = sum(m % 2 == 0 for m in sizes[:-1])
+    nlev = len(sizes)
+
     rows = [
-        ("leaf", "merklekv_tpu/ops/sha256_pallas.py:170",
+        ("leaf", "sha256_kernels.cu", "merklekv_tpu/ops/sha256_pallas.py:170", "leaf_kernel",
          lambda: leaf_digests_cuda(blocks, nblocks), lambda: plain.sha256_blocks(blocks, nblocks),
          blocks.numel() * 4 + nblocks.numel() * 4 + n * 32,
-         n_blocks_hashed * LOGIC_MSG_BLOCK, n_blocks_hashed * ADDS_MSG_BLOCK,
+         n_blocks_hashed * LOGIC_MSG_BLOCK, n_blocks_hashed * ADDS_MSG_BLOCK, None,
          f"[{n}, {nblk}, 16]", 10),
-        ("node_level", "merklekv_tpu/ops/sha256_pallas.py:293",
+        ("node_level", "sha256_kernels.cu", "merklekv_tpu/ops/sha256_pallas.py:293",
+         "node_level_kernel",
          lambda: node_level_cuda(leaves), lambda: plain.sha256_node_level(leaves),
-         2 * p_level * 32 + p_level * 32, p_level * LOGIC_NODE, p_level * ADDS_NODE,
+         2 * p_level * 32 + p_level * 32, p_level * LOGIC_NODE, p_level * ADDS_NODE, None,
          f"[{n}, 8]", 10),
-        ("node_pairs", "merklekv_tpu/ops/sha256_pallas.py:250",
+        ("node_pairs", "sha256_kernels.cu", "merklekv_tpu/ops/sha256_pallas.py:250",
+         "node_pairs_kernel",
          lambda: node_pairs_cuda(pairs_l, pairs_r), lambda: plain.sha256_node_pairs(pairs_l, pairs_r),
-         3 * BATCH * 32, BATCH * LOGIC_NODE, BATCH * ADDS_NODE, f"[{BATCH}, 8] x 2", 200),
+         3 * BATCH * 32, BATCH * LOGIC_NODE, BATCH * ADDS_NODE, None,
+         f"[{BATCH}, 8] x 2", 200),
+        ("path_rehash", "merkle_paths.cu", "merklekv_tpu/ops/sha256_pallas.py:250",
+         "path_rehash_kernel",
+         lambda: mp.path_rehash_cuda(tree, counters, pblocks, pnblocks, pos),
+         lambda: mp.path_rehash(tree_plain, pblocks, pnblocks, pos),
+         BATCH * (64 + 4 + 4 + 32) + 32 * (work["distinct"] + work["untouched"]),
+         work["distinct"] * LOGIC_NODE + BATCH * LOGIC_MSG_BLOCK,
+         work["distinct"] * ADDS_NODE + BATCH * ADDS_MSG_BLOCK,
+         latency_floor_ms(LOGIC_MSG_BLOCK + depth * LOGIC_NODE),
+         f"k={BATCH} of 2^{depth}, {work['distinct']} distinct nodes", 200),
+        ("promotion_chain", "merkle_paths.cu", "merklekv_tpu/ops/sha256_pallas.py:250",
+         "promotion_chain_kernel",
+         lambda: mp.promotion_chain_cuda(tree, TREE_KEYS),
+         lambda: mp.promotion_chain(tree, TREE_KEYS),
+         (1 + even) * 32 + nlev * 32, even * LOGIC_NODE, even * ADDS_NODE,
+         latency_floor_ms(even * LOGIC_NODE),
+         f"n={TREE_KEYS} on 2^{depth}, {even} node hashes", 200),
     ]
     out = []
-    for name, repl, kern, ref, nbytes, logic, adds, shape, reps in rows:
-        ms = event_ms(kern, reps)
+    for name, src, repl, kname, kern, ref, nbytes, logic, adds, floor, shape, reps in rows:
+        ms, seen = profiled_kernel_ms(kern, kname, reps)
+        call_ms = event_ms(kern, reps)
         plain_ms = event_ms(ref, 2, warmup=1)
         b_ms, by = bound_ms(nbytes, logic, adds), bound_by(nbytes, logic, adds)
-        log(f"[times] {name} at {shape}: {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-            f"{b_ms:.4f} ms by {by}: {nbytes} B, {logic} shift/logic + {adds} add ops)")
+        floor_txt = "" if floor is None else (
+            f", modelled latency floor {floor:.4f} ms at an assumed {CLOCK_HZ / 1e9} GHz, "
+            f"{WARP_CYCLES_PER_OP} cycles per warp op")
+        log(f"[times] {name} at {shape}: device {ms:.4f} ms per launch ({seen} of {reps} "
+            f"launches profiled; back-to-back calls "
+            f"{call_ms:.4f} ms; plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms by {by}: {nbytes} B, "
+            f"{logic} shift/logic + {adds} add ops{floor_txt})")
         out.append({
-            "name": name, "route": "cuda", "source": "merklekv_tpu_torch/csrc/sha256_kernels.cu",
+            "name": name, "route": "cuda", "source": f"merklekv_tpu_torch/csrc/{src}",
             "replaces": repl, "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": None,
@@ -463,9 +645,10 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
     return out
 
 
-def device_profile(label: str, fn, reps: int) -> None:
-    """One line: device kernel time per call of ``fn``, the profiled wall
-    time, the busy share, and the largest kernels (torch.profiler)."""
+def device_profile(label: str, fn, reps: int) -> dict:
+    """One line: device time per call of ``fn``, the profiled wall time, the
+    busy share, the device operations per call (kernels and copies), and
+    the largest of them (torch.profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -477,14 +660,22 @@ def device_profile(label: str, fn, reps: int) -> None:
         sync()
         wall = time.perf_counter() - t
     by_name: dict[str, float] = {}
+    kernels = copies = 0
     for ev in prof.events():
         if ev.device_type == DeviceType.CUDA:
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+            if ev.name.startswith(("Memcpy", "Memset")):
+                copies += 1
+            else:
+                kernels += 1
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    tops = "; ".join(f"{name[:48]} {ms / reps:.3f}" for name, ms in top)
-    log(f"[profile] {label}: device {busy / reps:.3f} ms per call, wall {wall * 1e3 / reps:.3f} "
-        f"ms per call under the profiler, busy {busy / (wall * 1e3):.3f}; top (ms/call): {tops}")
+    tops = "; ".join(f"{name[:48]} {ms / reps:.4f}" for name, ms in top)
+    log(f"[profile] {label}: device {busy / reps:.4f} ms per call, wall {wall * 1e3 / reps:.3f} "
+        f"ms per call under the profiler, busy {busy / (wall * 1e3):.4f}; per call "
+        f"{kernels / reps:.1f} kernel launches + {copies / reps:.1f} copies/memsets; "
+        f"top (ms/call): {tops}")
+    return {"device_ms": busy / reps, "kernels": kernels / reps, "copies": copies / reps}
 
 
 def main() -> int:
@@ -509,17 +700,19 @@ def main() -> int:
 
     phase_build()
     errs = phase_kernels(dev, rng)["max_abs_err"]
+    errs.update(phase_paths(dev, rng)["max_abs_err"])
     reb = phase_rebuild(dev, args.seed)
     srv = phase_serving(dev, args.seed)
     launches = {k: reb["launches"][k] + srv["launches"][k] for k in srv["launches"]}
-    if min(launches.values()) < 1:
+    if min(launches[name] for name in MAIN_PATH_KERNELS) < 1:
         raise AssertionError(f"a kernel was never launched on the main path: {launches}")
     kernels = phase_kernel_times(dev, rng, reb["blocks"], reb["nblocks"], errs, launches)
     device_profile("rebuild+diff 10M x 8", reb.pop("forward"), 3)
-    device_profile("serving batch of 4096 + root read", srv.pop("batch"), 5)
+    prof = device_profile("serving batch of 4096 + root read", srv.pop("batch"), 5)
     log(f"[summary] rebuild+diff 10M x 8: {reb['median_s'] * 1e3:.3f} ms, "
-        f"{reb['keys_per_s']:.0f} keys/s; serving 1M: {srv['writes_per_s']:.0f} writes/s; "
-        f"card {card}")
+        f"{reb['keys_per_s']:.0f} keys/s; serving 1M: {srv['writes_per_s']:.0f} writes/s, "
+        f"{prof['device_ms']:.4f} ms device and {prof['kernels']:.1f} kernel launches + "
+        f"{prof['copies']:.1f} copies per batch of {BATCH} + root read; card {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

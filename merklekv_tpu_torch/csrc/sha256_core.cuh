@@ -1,4 +1,5 @@
-// SHA-256 round math shared by the three kernels in sha256_kernels.cu.
+// SHA-256 round math shared by the kernels in sha256_kernels.cu and
+// merkle_paths.cu.
 //
 // Counterpart of _compress_tiles / _compress_tiles_const in
 // merklekv_tpu/ops/sha256_pallas.py, written for one message per thread:
@@ -17,7 +18,9 @@
 
 #ifdef __CUDACC__
 #define MKV_FN __device__ __forceinline__
-#define MKV_CONST __constant__
+// static: each source that includes this header keeps its own copy of the
+// tables, so the sources link into one library without a clash.
+#define MKV_CONST static __constant__
 #else
 #define MKV_FN static inline
 #define MKV_CONST static const

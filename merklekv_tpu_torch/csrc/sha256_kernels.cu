@@ -2,8 +2,9 @@
 // tree levels, and separate left/right parent pairs.
 //
 // Built at first use by merklekv_tpu_torch/ops/sha256_cuda.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-// into a library with a plain C interface, bound with ctypes. Every launcher
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
+// in parallel with merkle_paths.cu, and linked with it into one library with
+// a plain C interface, bound with ctypes. Every launcher
 // takes PyTorch's current stream, allocates nothing, never synchronises, and
 // returns cudaGetLastError() right after the launch (0 = launched).
 //

@@ -6,7 +6,8 @@ device work:
 
 - **value updates** (keyspace shape unchanged): hash the k changed leaves,
   scatter them into the capacity-padded leaf level, re-hash only the
-  touched parent paths — O(k log C) device work.
+  touched parent paths — O(k log C) device work, one fused kernel launch
+  per batch on the card (``ops/merkle_paths.py``).
 - **inserts / deletes** (shape changes): the host computes the permutation
   (numpy index arithmetic, no hashing), the device gathers surviving
   digests into their new slots, scatters the k fresh digests, and
@@ -17,11 +18,11 @@ zero sentinel). The reference tree pairs only live nodes and promotes odd
 tails, so its levels differ from the padded tree's only on the right spine:
 reference level l equals padded level l at every position except the last.
 The promotion-chain walk recovers that last node (and so the root) in
-O(log C) node hashes.
+O(log C) node hashes, one kernel launch per tree version.
 
 Unlike the JAX state, which rebuilt an immutable tuple of levels per batch,
-value updates write into the level tensors in place (``index_put_``); the
-restructure and build paths still produce fresh levels and swap them in.
+value updates write into the level tensors in place; the restructure and
+build paths still produce fresh levels and swap them in.
 
 Host memory: only the sorted key array is kept (values are never stored).
 """
@@ -36,7 +37,7 @@ import torch
 from merklekv_tpu_torch.merkle.cpu import ref_level_sizes as _ref_level_sizes
 from merklekv_tpu_torch.merkle.packing import pack_leaves
 from merklekv_tpu_torch.merkle.torch_engine import leaf_digests
-from merklekv_tpu_torch.ops.dispatch import hash_blocks, hash_node_level, hash_node_pairs
+from merklekv_tpu_torch.ops.dispatch import hash_node_level, promotion_chain, rehash_paths
 from merklekv_tpu_torch.ops.sha256 import digest_to_bytes, digests_to_bytes
 from merklekv_tpu_torch.utils.torchenv import as_tensor, resolve_device, words_np
 
@@ -66,24 +67,6 @@ def _reduce_levels(leaves: torch.Tensor) -> list[torch.Tensor]:
     return levels
 
 
-def _scatter_levels(levels: list[torch.Tensor], idx: torch.Tensor,
-                    new_leaves: torch.Tensor) -> None:
-    """Scatter new leaf digests and re-hash only the touched parent paths,
-    IN PLACE on ``levels``.
-
-    idx [kb] int64: padded entries duplicate a real entry with the identical
-    leaf value, so duplicate scatters write identical rows and are benign
-    (at every level, duplicates of one slot hash identical children).
-    new_leaves [kb, 8] int32."""
-    levels[0].index_put_((idx,), new_leaves)
-    cur_idx = idx
-    for lvl in range(1, len(levels)):
-        cur_idx = cur_idx // 2
-        below = levels[lvl - 1]
-        parents = hash_node_pairs(below[2 * cur_idx], below[2 * cur_idx + 1])
-        levels[lvl].index_put_((cur_idx,), parents)
-
-
 class DeviceMerkleState:
     """Sorted keyspace + device-resident padded tree levels.
 
@@ -103,10 +86,14 @@ class DeviceMerkleState:
         self._index: dict[bytes, int] = {}
         self._levels: Optional[list[torch.Tensor]] = None
         self._capacity = 0
-        # The reference tree's last node per level (the promotion chain),
-        # computed once per tree version and dropped whenever the levels or
-        # the key array change.
-        self._chain: Optional[list[torch.Tensor]] = None
+        # The path-rehash kernel's arrival counters, [C - 1] int32, zero
+        # between batches. Allocated at the first value batch of a capacity,
+        # dropped when the capacity changes or a batch fails.
+        self._counters: Optional[torch.Tensor] = None
+        # The reference tree's last node per level (the promotion chain) as
+        # one [L, 8] tensor, computed once per tree version and dropped
+        # whenever the levels or the key array change.
+        self._chain: Optional[torch.Tensor] = None
         # Writes accumulate here and flush as ONE device batch at the next
         # query (or at PENDING_LIMIT).
         self._pending: dict[bytes, Optional[bytes]] = {}
@@ -161,9 +148,8 @@ class DeviceMerkleState:
                 raise ValueError(f"level {lvl} has shape {tuple(arr.shape)}")
         if any(keys_arr[i] >= keys_arr[i + 1] for i in range(n - 1)):
             raise ValueError("keys must be sorted and unique")
-        st._levels = [as_tensor(np.asarray(arr, np.uint32), st._device)
-                      for arr in levels_np]
-        st._capacity = c
+        st._adopt_levels([as_tensor(np.asarray(arr, np.uint32), st._device)
+                          for arr in levels_np])
         st._set_keys(keys_arr)
         return st
 
@@ -202,6 +188,15 @@ class DeviceMerkleState:
     def _put(self, arr: np.ndarray, dtype: torch.dtype = torch.int32) -> torch.Tensor:
         return as_tensor(arr, self._device, dtype)
 
+    def _adopt_levels(self, levels: Optional[list[torch.Tensor]]) -> None:
+        """Swap in a new tree version (``None`` = empty)."""
+        c = int(levels[0].shape[0]) if levels else 0
+        if c != self._capacity:
+            self._counters = None
+        self._chain = None
+        self._levels = levels
+        self._capacity = c
+
     # ------------------------------------------------------------ updates
     def apply(self, changes: Sequence[tuple[bytes, Optional[bytes]]]) -> None:
         """Stage (key, value|None-for-delete) changes; last write per key
@@ -230,8 +225,11 @@ class DeviceMerkleState:
             # A failed dispatch must not silently drop the batch. Restructure
             # and build swap fresh levels in only on success; an in-place
             # value scatter that failed part-way is healed by the retry,
-            # which re-scatters the same leaves and re-hashes their paths.
-            # Entries staged by a racing caller win over the restored batch.
+            # which re-scatters the same leaves and re-hashes their paths,
+            # on freshly zeroed arrival counters (a launch cut short may
+            # leave some set). Entries staged by a racing caller win over
+            # the restored batch.
+            self._counters = None
             merged = dict(pending)
             merged.update(self._pending)
             self._pending = merged
@@ -252,26 +250,19 @@ class DeviceMerkleState:
         self._restructure(deletes, upserts, inserts)
 
     def _update_in_place(self, items: list[tuple[bytes, bytes]]) -> None:
-        k = len(items)
-        kb = _bucket(k)
-        idx = np.empty(kb, np.int64)
-        idx[:k] = self._positions([key for key, _ in items])
-        idx[k:] = idx[0]  # pad with a duplicate of a real entry
-        packed = pack_leaves([key for key, _ in items], [v for _, v in items])
-        # Pad rows duplicate row 0 (same digest as idx[0], so the duplicate
-        # scatters write identical values).
-        nblk = packed.max_blocks
-        blocks = np.empty((kb, nblk, 16), np.uint32)
-        blocks[:k] = packed.blocks
-        nblocks = np.empty(kb, np.int32)
-        nblocks[:k] = packed.nblocks
-        if kb > k:
-            blocks[k:] = blocks[0]
-            nblocks[k:] = nblocks[0]
+        """Value updates of present keys. ``items`` are sorted by key, so
+        their positions are sorted and unique: no bucket padding (the JAX
+        state pads to share compiled programs; eager launches need none)."""
+        keys = [key for key, _ in items]
+        pos = self._positions(keys)
+        packed = pack_leaves(keys, [v for _, v in items])
 
         def scatter() -> None:
-            new_leaves = hash_blocks(self._put(blocks), self._put(nblocks))
-            _scatter_levels(self._levels, self._put(idx, torch.int64), new_leaves)
+            if self._counters is None:
+                self._counters = torch.zeros(self._capacity - 1, dtype=torch.int32,
+                                             device=self._device)
+            rehash_paths(self._levels, self._counters, self._put(packed.blocks),
+                         self._put(packed.nblocks), pos)
 
         self._chain = None
         self._run("scatter", scatter)
@@ -289,10 +280,8 @@ class DeviceMerkleState:
             return padded
 
         padded = self._run("build", padded_leaves)
-        self._chain = None
-        self._levels = self._dispatch_build(padded)
+        self._adopt_levels(self._dispatch_build(padded))
         self._set_keys(keys_arr)
-        self._capacity = c
         self.full_rebuilds += 1
 
     def _restructure(
@@ -322,10 +311,8 @@ class DeviceMerkleState:
             gather = surv_src
         n_new = len(new_keys)
         if n_new == 0:
-            self._chain = None
             self._set_keys(np.empty(0, dtype=object))
-            self._levels = None
-            self._capacity = 0
+            self._adopt_levels(None)
             return
         if self._levels is None:
             # Empty -> non-empty: everything is fresh; all values are in
@@ -360,12 +347,10 @@ class DeviceMerkleState:
             fresh_pos = np.zeros(0, np.int64)
             fresh = torch.zeros((0, 8), dtype=torch.int32, device=self._device)
 
-        self._chain = None
-        self._levels = self._dispatch_restructure(
+        self._adopt_levels(self._dispatch_restructure(
             gather_padded, fresh_pos, fresh, kb, c_new
-        )
+        ))
         self._set_keys(new_keys)
-        self._capacity = c_new
         self.structural_batches += 1
 
     # ------------------------------------------------- device dispatch seam
@@ -404,26 +389,13 @@ class DeviceMerkleState:
         return self._run("restructure", go)
 
     # ------------------------------------------------------------ queries
-    def _promotion_chain(self) -> list[torch.Tensor]:
-        """The reference tree's LAST node at every level, as [1, 8] device
-        tensors, recovered from the padded levels: the padded tree hashes
-        zero sentinels into its right spine, so only this one position per
-        level can differ from the reference tree. An even level size m
-        combines position m-2 (identical in both trees) with the carried
-        correction; an odd size promotes the tail unchanged. The last entry
-        is the reference root. Cached until the tree changes."""
+    def _promotion_chain(self) -> torch.Tensor:
+        """The reference tree's LAST node at every level, [L, 8] on the
+        device, recovered from the padded levels (see
+        ``ops/merkle_paths.py::promotion_chain``); row L-1 is the reference
+        root. Cached until the tree changes."""
         if self._chain is None:
-            n = len(self._keys)
-            levels = self._levels
-            last = levels[0][n - 1 : n]
-            chain = [last]
-            m = n
-            for lvl in range(1, len(self.ref_level_sizes(n))):
-                if m % 2 == 0:
-                    last = hash_node_pairs(levels[lvl - 1][m - 2 : m - 1], last)
-                chain.append(last)
-                m = (m + 1) // 2
-            self._chain = chain
+            self._chain = promotion_chain(self._levels, len(self._keys))
         return self._chain
 
     def root_hash(self, flush: bool = True) -> Optional[bytes]:
@@ -435,7 +407,7 @@ class DeviceMerkleState:
             return None
         return self._run(
             "root",
-            lambda: digest_to_bytes(words_np(self._promotion_chain()[-1])[0]),
+            lambda: digest_to_bytes(words_np(self._promotion_chain()[-1])),
         )
 
     def root_hex(self, flush: bool = True) -> str:
@@ -460,7 +432,7 @@ class DeviceMerkleState:
 
     def _promoted_last(self, level: int) -> bytes:
         """The reference tree's last node at ``level`` as 32 bytes."""
-        return digest_to_bytes(words_np(self._promotion_chain()[level])[0])
+        return digest_to_bytes(words_np(self._promotion_chain()[level]))
 
     def level_nodes(
         self, level: int, lo: int, hi: int, flush: bool = True

@@ -3,7 +3,8 @@ PyTorch versions for CPU tensors.
 
 Counterpart of ``merklekv_tpu/ops/dispatch.py``. Every hashing site of the
 torch package (leaf digests, the static tree build, the serving tree's
-scatter and restructure) routes through these four functions.
+path rehash, promotion chain and restructure) routes through these
+functions.
 
 Policy: the tensor's device decides, and nothing else. A CUDA tensor goes to
 the kernel (or the wrapper raises); a CPU tensor goes to the plain version.
@@ -14,8 +15,10 @@ interpreted Pallas is slow on the CPU, and the CPU here runs plain PyTorch.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from merklekv_tpu_torch.ops.merkle_paths import path_rehash_cuda, promotion_chain_cuda
 from merklekv_tpu_torch.ops.sha256_cuda import (
     build_levels_cuda,
     leaf_digests_cuda,
@@ -28,6 +31,8 @@ __all__ = [
     "hash_node_pairs",
     "hash_node_level",
     "build_levels",
+    "rehash_paths",
+    "promotion_chain",
 ]
 
 
@@ -50,3 +55,16 @@ def hash_node_level(cur: torch.Tensor) -> torch.Tensor:
 def build_levels(leaves: torch.Tensor) -> list[torch.Tensor]:
     """All tree levels bottom-up, odd promotion intact."""
     return build_levels_cuda(leaves)
+
+
+def rehash_paths(levels: list[torch.Tensor], counters: torch.Tensor,
+                 blocks: torch.Tensor, nblocks: torch.Tensor, pos: np.ndarray) -> None:
+    """Hash k changed leaves into the padded ``levels`` at the sorted unique
+    host positions ``pos`` and re-hash their parent paths, in place."""
+    path_rehash_cuda(levels, counters, blocks, nblocks, pos)
+
+
+def promotion_chain(levels: list[torch.Tensor], n: int) -> torch.Tensor:
+    """[L, 8]: the odd-promotion reference tree's last node per level over
+    the first n leaves of the padded ``levels``; the last row is the root."""
+    return promotion_chain_cuda(levels, n)

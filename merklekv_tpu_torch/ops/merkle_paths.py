@@ -1,0 +1,187 @@
+"""The serving tree's path rehash and promotion chain: the plain versions and
+the CUDA wrappers.
+
+Counterpart of two device programs of ``merklekv_tpu/merkle/incremental.py``:
+``_scatter_hash_fn`` (leaf hashing + scatter + re-hash of the touched parent
+paths, one program per value batch) and ``_ref_root_fn`` (the promotion-chain
+walk to the odd-promotion reference root). Both ran ``_node_kernel``
+(``merklekv_tpu/ops/sha256_pallas.py:250``) level by level; on the card each
+is one hand-written kernel in ``csrc/merkle_paths.cu``, whose note says what
+bounds it and what its design does about that.
+
+Wrappers (``path_rehash_cuda``, ``promotion_chain_cuda``), as in
+``ops/sha256_cuda.py``:
+- tensors on the CPU run the plain version below; that is the only case
+  that does;
+- CUDA tensors are checked and the kernel is launched on the current stream,
+  or the wrapper raises (a failed build or a refused launch is an error,
+  never a fallback);
+- ``LAUNCHES["path_rehash"]`` / ``LAUNCHES["promotion_chain"]`` count the
+  launches, incremented at the launch and nowhere else.
+
+Tree layout: ``levels[l]`` is the capacity-padded level l, ``[C >> l, 8]``
+int32 words, ``C`` a power of two; ``levels[-1]`` is the ``[1, 8]`` root.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from merklekv_tpu_torch.merkle.cpu import ref_level_sizes
+from merklekv_tpu_torch.ops.sha256 import sha256_blocks, sha256_node_pairs
+from merklekv_tpu_torch.ops.sha256_cuda import (
+    LAUNCHES,
+    _check_cuda,
+    _check_rc,
+    _is_cpu,
+    _stream,
+    build_kernels,
+)
+
+__all__ = [
+    "path_rehash",
+    "promotion_chain",
+    "path_rehash_cuda",
+    "promotion_chain_cuda",
+]
+
+
+# ------------------------------------------------------------ plain versions
+
+def path_rehash(levels: list[torch.Tensor], blocks: torch.Tensor,
+                nblocks: torch.Tensor, pos: np.ndarray) -> None:
+    """The plain version of the fused kernel: hash the k leaves, scatter
+    them into ``levels[0]`` at ``pos`` and re-hash the touched parents IN
+    PLACE, one level at a time (the JAX package's ``_scatter_levels``).
+    Parents shared by several entries are hashed once per entry, from
+    identical children."""
+    idx = torch.from_numpy(np.asarray(pos, np.int64)).to(levels[0].device)
+    levels[0].index_put_((idx,), sha256_blocks(blocks, nblocks))
+    for lvl in range(1, len(levels)):
+        idx = idx // 2
+        below = levels[lvl - 1]
+        levels[lvl].index_put_((idx,), sha256_node_pairs(below[2 * idx], below[2 * idx + 1]))
+
+
+def promotion_chain(levels: list[torch.Tensor], n: int) -> torch.Tensor:
+    """[len(ref_level_sizes(n)), 8]: the odd-promotion reference tree's LAST
+    node at every level over the first n leaves, from the padded levels. The
+    padded tree hashes zero sentinels into its right spine, so only this one
+    position per level can differ between the two trees: an even reference
+    size m combines position m-2 (identical in both) with the carried last
+    node; an odd size promotes it unchanged. The last row is the root."""
+    last = levels[0][n - 1 : n]
+    rows = [last]
+    m = n
+    for lvl in range(1, len(ref_level_sizes(n))):
+        if m % 2 == 0:
+            last = sha256_node_pairs(levels[lvl - 1][m - 2 : m - 1], last)
+        rows.append(last)
+        m = (m + 1) // 2
+    return torch.cat(rows)
+
+
+# ------------------------------------------------------------ CUDA wrappers
+
+class MkvLevels(ctypes.Structure):
+    """``struct MkvLevels`` of ``csrc/merkle_paths.cuh``: every level's row
+    pointer plus the depth, handed to a kernel by value."""
+
+    MAX_LEVELS = 64
+    _fields_ = [("rows", ctypes.c_void_p * MAX_LEVELS), ("depth", ctypes.c_int32)]
+
+
+def _lib() -> ctypes.CDLL:
+    """The kernel library (``ops/sha256_cuda.py`` builds it) with the two
+    entry points of ``csrc/merkle_paths.cu`` bound."""
+    lib = build_kernels().lib
+    p, i64, i32, levels = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.POINTER(MkvLevels)
+    lib.mkv_path_rehash.argtypes = [levels, p, p, p, i32, i32, p, p]
+    lib.mkv_promotion_chain.argtypes = [levels, i64, i32, p, p]
+    lib.mkv_path_rehash.restype = lib.mkv_promotion_chain.restype = ctypes.c_int
+    return lib
+
+
+def _capacity(levels: list[torch.Tensor]) -> int:
+    c = int(levels[0].shape[0]) if levels else 0
+    if c < 2 or c & (c - 1) or len(levels) != c.bit_length():
+        raise ValueError(f"{len(levels)} levels over {c} leaves is not a padded tree")
+    if len(levels) > MkvLevels.MAX_LEVELS or c > 1 << 31:
+        raise ValueError(f"capacity {c} is beyond the kernels' int32 positions")
+    return c
+
+
+def _levels_struct(levels: list[torch.Tensor], dev: torch.device) -> MkvLevels:
+    c = int(levels[0].shape[0])
+    st = MkvLevels()
+    for lvl, t in enumerate(levels):
+        _check_cuda(t, f"levels[{lvl}]", 2, 8, dev)
+        if t.shape[0] != c >> lvl:
+            raise ValueError(f"levels[{lvl}] has {t.shape[0]} rows, expected {c >> lvl}")
+        st.rows[lvl] = t.data_ptr()
+    st.depth = len(levels)
+    return st
+
+
+def path_rehash_cuda(levels: list[torch.Tensor], counters: torch.Tensor,
+                     blocks: torch.Tensor, nblocks: torch.Tensor,
+                     pos: np.ndarray) -> None:
+    """Hash k changed leaves ([k, B, 16] int32 blocks, [k] int32 block
+    counts) into ``levels`` at the host positions ``pos`` [k] (sorted,
+    unique), and re-hash every touched parent, in place: one launch of the
+    fused kernel. ``counters`` [C - 1] int32 is the kernel's arrival scratch,
+    zero on entry and left zero (unused on the CPU)."""
+    pos = np.asarray(pos)
+    k = len(pos)
+    c = _capacity(levels)
+    if pos.ndim != 1 or not np.issubdtype(pos.dtype, np.integer):
+        raise TypeError(f"positions must be a 1-D integer array, got {pos.dtype} {pos.shape}")
+    if k and not np.all(np.diff(pos) > 0):
+        raise ValueError("positions must be sorted and unique")
+    if k and (pos[0] < 0 or pos[-1] >= c):
+        raise ValueError(f"positions [{pos[0]}, {pos[-1]}] outside capacity {c}")
+    if blocks.shape[0] != k or nblocks.shape[0] != k:
+        raise ValueError(f"{blocks.shape[0]} blocks, {nblocks.shape[0]} counts, {k} positions")
+    if _is_cpu(levels[0], blocks, nblocks):
+        if k:
+            path_rehash(levels, blocks, nblocks, pos)
+        return
+    dev = levels[0].device
+    st = _levels_struct(levels, dev)
+    _check_cuda(blocks, "blocks", 3, 16, dev)
+    _check_cuda(nblocks, "nblocks", 1, None, dev)
+    _check_cuda(counters, "counters", 1, None, dev)
+    if counters.shape[0] != c - 1:
+        raise ValueError(f"counters has {counters.shape[0]} entries, expected {c - 1}")
+    if k == 0:
+        return
+    pos_t = torch.from_numpy(pos.astype(np.int32)).to(dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.mkv_path_rehash(st, blocks.data_ptr(), nblocks.data_ptr(), pos_t.data_ptr(),
+                                 k, blocks.shape[1], counters.data_ptr(), _stream(dev))
+        _check_rc(lib, rc, "path_rehash")
+        LAUNCHES["path_rehash"] += 1
+
+
+def promotion_chain_cuda(levels: list[torch.Tensor], n: int) -> torch.Tensor:
+    """[len(ref_level_sizes(n)), 8] int32: the reference tree's last node per
+    level over the first n (1 <= n <= C) leaves, in one launch."""
+    c = _capacity(levels)
+    if not 1 <= n <= c:
+        raise ValueError(f"live count {n} outside [1, {c}]")
+    if _is_cpu(levels[0]):
+        return promotion_chain(levels, n)
+    dev = levels[0].device
+    st = _levels_struct(levels, dev)
+    nlev = len(ref_level_sizes(n))
+    out = torch.empty((nlev, 8), dtype=torch.int32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.mkv_promotion_chain(st, n, nlev, out.data_ptr(), _stream(dev))
+        _check_rc(lib, rc, "promotion_chain")
+        LAUNCHES["promotion_chain"] += 1
+    return out

@@ -4,13 +4,16 @@ Counterpart of ``merklekv_tpu/ops/sha256_pallas.py``. The kernels live in
 ``merklekv_tpu_torch/csrc/sha256_kernels.cu`` (round math in
 ``sha256_core.cuh``); the note at the top of that file says which Pallas
 kernel each one replaces, what bounds it on an H100 and what its design
-does about that.
+does about that. The serving tree's path-rehash and promotion-chain
+kernels (``csrc/merkle_paths.cu``) are built into the same library; their
+binding and wrappers are in ``ops/merkle_paths.py``.
 
-Build: at first use, ``nvcc`` compiles the sources for ``sm_90a`` into a
-shared library with a plain C interface under ``build/torch_kernels/`` at the
-repository root, named by a hash of the sources and flags (so an edited
-source is rebuilt and an unchanged one is loaded as it is); ``ctypes`` binds
-it. Nothing is built or imported when this module is imported.
+Build: at first use, one ``nvcc`` per source, all started together, compiles
+it for ``sm_90a``; one more links the objects into a shared library with a
+plain C interface under ``build/torch_kernels/`` at the repository root,
+named by a hash of the sources and flags (so an edited source is rebuilt and
+an unchanged one is loaded as it is); ``ctypes`` binds it. Nothing is built
+or imported when this module is imported.
 
 Wrappers (``leaf_digests_cuda``, ``node_level_cuda``, ``node_pairs_cuda``):
 - a tensor on the CPU runs the kernel's plain PyTorch version
@@ -57,17 +60,18 @@ __all__ = [
 ]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("sha256_kernels.cu",)
-_HEADERS = ("sha256_core.cuh",)
+_SOURCES = ("sha256_kernels.cu", "merkle_paths.cu")
+_HEADERS = ("sha256_core.cuh", "merkle_paths.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v", "-lineinfo",
 )
 
 # Launch counts per kernel: plain integers, bumped where a kernel launches.
-LAUNCHES = {"leaf": 0, "node_level": 0, "node_pairs": 0}
+LAUNCHES = {"leaf": 0, "node_level": 0, "node_pairs": 0,
+            "path_rehash": 0, "promotion_chain": 0}
 
 
 def reset_launch_counts() -> None:
@@ -112,6 +116,7 @@ def _source_tag() -> str:
 
 
 def _bind(lib: ctypes.CDLL) -> None:
+    """Bind this module's entry points (``ops/merkle_paths.py`` binds its own)."""
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
     lib.mkv_leaf_digests.argtypes = [p, p, p, i64, i32, p]
     lib.mkv_node_level.argtypes = [p, p, i64, p]
@@ -120,6 +125,17 @@ def _bind(lib: ctypes.CDLL) -> None:
         fn.restype = ctypes.c_int
     lib.mkv_error_string.argtypes = [ctypes.c_int]
     lib.mkv_error_string.restype = ctypes.c_char_p
+
+
+def _run_nvcc(cmds: list[list[str]]) -> str:
+    """Run the nvcc commands all at once; return their output or raise."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    return "".join(logs)
 
 
 def build_kernels() -> _Kernels:
@@ -133,22 +149,25 @@ def build_kernels() -> _Kernels:
         if _kernels is not None:
             return _kernels
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        out = BUILD_DIR / f"libmkv_sha256_{_source_tag()}.so"
+        out = BUILD_DIR / f"libmkv_kernels_{_source_tag()}.so"
         log_path = out.with_suffix(".log")
         seconds = 0.0
         if not out.exists():
+            nvcc = _nvcc()
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp),
-                   *(str(_CSRC / s) for s in _SOURCES)]
+            objs = [tmp.with_name(f"{tmp.name}.{Path(src).stem}.o") for src in _SOURCES]
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
+            try:
+                log = _run_nvcc([[nvcc, *_NVCC_FLAGS, "-c", "-o", str(obj), str(_CSRC / src)]
+                                 for src, obj in zip(_SOURCES, objs)])
+                log += _run_nvcc([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+            except BaseException:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
-                )
+                raise
+            finally:
+                for obj in objs:
+                    obj.unlink(missing_ok=True)
+            seconds = time.perf_counter() - t0
             log_path.write_text(log)
             os.replace(tmp, out)
         lib = ctypes.CDLL(str(out))

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from merklekv_tpu_torch.merkle import torch_engine as te
-from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState
+from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState, _reduce_levels
+from merklekv_tpu_torch.ops import merkle_paths as mp
 from merklekv_tpu_torch.ops import sha256 as plain
 from merklekv_tpu_torch.ops import sha256_cuda as sc
 
@@ -63,12 +64,13 @@ def test_launch_counts_and_empty_inputs(dev):
     one_row = torch.zeros((1, 8), dtype=torch.int32, device=dev)
     assert sc.node_level_cuda(one_row).shape == (0, 8)
     assert sc.node_pairs_cuda(e8, e8).shape == (0, 8)
-    assert sc.LAUNCHES == {"leaf": 0, "node_level": 0, "node_pairs": 0}
+    assert set(sc.LAUNCHES.values()) == {0}
     x = _words(1, (4, 8), dev)
     sc.node_level_cuda(x)
     sc.node_pairs_cuda(x, x)
     sc.leaf_digests_cuda(_words(2, (4, 1, 16), dev), torch.ones(4, dtype=torch.int32, device=dev))
-    assert sc.LAUNCHES == {"leaf": 1, "node_level": 1, "node_pairs": 1}
+    assert sc.LAUNCHES == {"leaf": 1, "node_level": 1, "node_pairs": 1,
+                           "path_rehash": 0, "promotion_chain": 0}
 
 
 def test_wrappers_reject_bad_tensors(dev):
@@ -116,3 +118,60 @@ def test_serving_tree_on_card_matches_cpu(dev):
             assert card.level_nodes(level, 0, m) == cpu.level_nodes(level, 0, m)
     for a, b in zip(card.to_numpy_levels(), cpu.to_numpy_levels()):
         np.testing.assert_array_equal(a, b)
+
+
+PATH_C = 4096
+PATH_CASES = {
+    "k1": lambda rng: [1234],
+    "sibling_pair": lambda rng: [100, 101],
+    "first_and_last": lambda rng: [0, PATH_C - 1],
+    "one_subtree": lambda rng: list(range(1024, 1536)),
+    "every_leaf": lambda rng: list(range(PATH_C)),
+    "random_257": lambda rng: sorted(rng.choice(PATH_C, size=257, replace=False)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PATH_CASES))
+def test_path_rehash_kernel_matches_plain(dev, case):
+    """The fused kernel on one copy of the levels, its plain version on
+    another: every level bit for bit, the counters zero again."""
+    rng = np.random.RandomState(sorted(PATH_CASES).index(case))
+    levels = _reduce_levels(_words(1, (PATH_C, 8), dev))
+    ref = [lv.clone() for lv in levels]
+    pos = np.asarray(PATH_CASES[case](rng), np.int64)
+    k = len(pos)
+    blocks = _words(2, (k, 2, 16), dev)
+    nblocks = torch.from_numpy(rng.randint(0, 3, size=k).astype(np.int32)).to(dev)
+    counters = torch.zeros(PATH_C - 1, dtype=torch.int32, device=dev)
+    before = sc.LAUNCHES["path_rehash"]
+    mp.path_rehash_cuda(levels, counters, blocks, nblocks, pos)
+    assert sc.LAUNCHES["path_rehash"] == before + 1
+    mp.path_rehash(ref, blocks, nblocks, pos)
+    for lvl, (got, want) in enumerate(zip(levels, ref)):
+        assert torch.equal(got, want), (case, lvl)
+    assert not counters.any()
+
+
+def test_promotion_chain_kernel_matches_plain(dev):
+    levels = _reduce_levels(_words(3, (PATH_C, 8), dev))
+    for n in (1, 2, 3, PATH_C // 2 + 1, 3000, PATH_C):
+        before = sc.LAUNCHES["promotion_chain"]
+        got = mp.promotion_chain_cuda(levels, n)
+        assert sc.LAUNCHES["promotion_chain"] == before + 1
+        assert torch.equal(got, mp.promotion_chain(levels, n)), n
+
+
+def test_value_batch_is_one_fused_launch(dev):
+    items = {b"sk%04d" % i: b"v%d" % i for i in range(300)}
+    card = DeviceMerkleState.from_items(items.items())
+    cpu = DeviceMerkleState.from_items(items.items(), device="cpu")
+    batch = [(b"sk%04d" % i, b"w%d" % i) for i in (0, 1, 7, 150, 299)]
+    before = dict(sc.LAUNCHES)
+    card.apply(batch)
+    card.flush_pending()
+    delta = {name: sc.LAUNCHES[name] - before[name] for name in before}
+    assert delta == {"leaf": 0, "node_level": 0, "node_pairs": 0,
+                     "path_rehash": 1, "promotion_chain": 0}
+    cpu.apply(batch)
+    assert card.root_hex() == cpu.root_hex()
+    assert sc.LAUNCHES["promotion_chain"] == before["promotion_chain"] + 1

@@ -132,7 +132,7 @@ def test_cpu_wrappers_and_dispatch_take_plain_versions():
     assert torch.equal(dispatch.hash_node_level(cur), t_sha.sha256_node_level(cur))
     assert torch.equal(dispatch.hash_node_pairs(cur[:10], cur[10:20]),
                        t_sha.sha256_node_pairs(cur[:10], cur[10:20]))
-    assert sha256_cuda.LAUNCHES == {"leaf": 0, "node_level": 0, "node_pairs": 0}
+    assert set(sha256_cuda.LAUNCHES.values()) == {0}
 
 
 def test_digest_byte_helpers_match_jax():
