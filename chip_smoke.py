@@ -29,8 +29,32 @@ Phases, one line each (an uncaught failure exits nonzero):
               keys (each exactly one fused path-rehash launch and no other
               kernel of ours) and one structural batch, every root and
               TREELEVEL slice (each level's last node included) against the
-              golden ``CpuMerkleState``; then sustained writes/s.
-5. kernels line — per kernel: launches on the main path (phases 3 and 4,
+              golden ``CpuMerkleState``; then sustained writes/s, timed with
+              the dispatch guard on (every device call on its own thread).
+5. mirror   — the serving mirror (``cluster/mirror.py::DeviceTreeMirror``)
+              over a 1M-key engine defined here (a dict and a mutation
+              counter): warm on the card (must land on rung 1), 50 batches
+              of 4096 value updates staged with ``on_events``, a structural
+              batch, a TRUNCATE and a refill; the stamped root, stamped
+              TREELEVEL slices (a leaf slice, a mid level, every level's
+              promotion-chain edge) and staleness against a
+              ``CpuMerkleState`` kept in step, after every 10th batch and
+              after each other step. Asserts zero degradations, guard
+              errors, guard timeouts, pump errors, warm errors and
+              re-warms, at least one pump drain, and launches of
+              ``path_rehash`` and
+              ``promotion_chain``; prints the warm time, writes/s, pump
+              batches and the largest pump lag.
+6. drill    — fault containment at 65,536 keys on the card, whose ladder
+              ends at rung 1: under a persistent injected ``scatter``
+              failure each failed drain invalidates the mirror and re-warms
+              it on the card, which then serves the golden root (three
+              times; rung 0 is never seen, no degradation is counted);
+              after heal fresh writes drain on the card again; then a
+              ``scatter`` hang under a 200 ms dispatch deadline: the pump
+              survives and no root query blocks past 300 ms. Prints the
+              re-warm times and the longest gap between served roots.
+7. kernels line — per kernel: launches on the main path (phases 3 to 6,
               each counted from 0), its device time (torch.profiler kernel
               time), the plain version's time, and its bound; for the two
               serving kernels the ``[times]`` line also gives a modelled
@@ -49,6 +73,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -62,6 +87,12 @@ TREE_KEYS = 1_000_000
 BATCH = 4096
 CHECKED_BATCHES = 20
 TIMED_BATCHES = 50
+MIRROR_BATCHES = 50
+MIRROR_CHECK_EVERY = 10
+DRILL_KEYS = 65_536
+DRILL_BATCH = 256
+DRILL_DEADLINE_MS = 200.0
+DRILL_REWARMS = 3
 
 # Bound arithmetic (H100 SXM, NVIDIA data sheet): 3.35 TB/s HBM. Shifts and
 # logic run only on the 64 INT32 lanes of an SM: 132 SMs x 64 x 1.98 GHz
@@ -88,7 +119,7 @@ ADDS_NODE = ADDS_MSG_BLOCK + ADDS_PAD_BLOCK
 # shorter than that issue time.) Memory latency comes on top.
 WARP_CYCLES_PER_OP = 2
 CLOCK_HZ = 1.98e9
-# Kernels the main path (phases 3 and 4) must launch; node_pairs is held
+# Kernels the main path (phases 3 to 6) must launch; node_pairs is held
 # against its plain version in phase 2 but no longer runs on the main path.
 MAIN_PATH_KERNELS = ("leaf", "node_level", "path_rehash", "promotion_chain")
 
@@ -453,6 +484,7 @@ def _check_serving(dev_state, cpu_state, rng: np.random.Generator, what: str) ->
 
 def phase_serving(dev, seed: int, n_tree: int = TREE_KEYS, batch: int = BATCH,
                   checked: int = CHECKED_BATCHES, timed: int = TIMED_BATCHES) -> dict:
+    from merklekv_tpu_torch.device.guard import get_guard
     from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
     from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState
     from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
@@ -502,8 +534,12 @@ def phase_serving(dev, seed: int, n_tree: int = TREE_KEYS, batch: int = BATCH,
         f"every root and TREELEVEL slice == CpuMerkleState; launches {launches}")
 
     # Timed value batches draw from live keys only: a write to a deleted key
-    # is an insert, and would time the structural path instead.
+    # is an insert, and would time the structural path instead. The dispatch
+    # guard is on at its default deadline: every device call runs on a
+    # thread of its own.
     live = np.setdiff1d(np.arange(n_tree), np.setdiff1d(del_idx, up_idx))
+    if get_guard().deadline_ms <= 0:
+        raise AssertionError("the dispatch guard is off")
     all_changes = []
     t = time.perf_counter()
     for b in range(timed):
@@ -513,16 +549,16 @@ def phase_serving(dev, seed: int, n_tree: int = TREE_KEYS, batch: int = BATCH,
         st.flush_pending()
         all_changes.append(changes)
     root = st.root_hash()
-    dt = time.perf_counter() - t
-    if st.structural_batches != 1:
-        raise AssertionError("a timed value batch took the structural path")
+    rate = timed * batch / (time.perf_counter() - t)
     for changes in all_changes:
         cpu.apply(changes)
     if root.hex() != cpu.root_hex():
         raise AssertionError("serving root after the timed batches differs from CpuMerkleState")
-    rate = timed * batch / dt
-    log(f"[serving] sustained {rate:.0f} writes/s ({timed} batches of {batch}, {dt:.3f} s, "
-        f"host staging + packing + device scatter, closed by a root read); root == CpuMerkleState")
+    if st.structural_batches != 1:
+        raise AssertionError("a timed value batch took the structural path")
+    log(f"[serving] sustained {rate:.0f} writes/s with the dispatch guard on ({timed} batches "
+        f"of {batch}, host staging + packing + device scatter, closed by a root read); "
+        f"root == CpuMerkleState")
 
     def one_batch() -> None:
         idx = live[rng.integers(0, len(live), size=batch)]
@@ -531,6 +567,367 @@ def phase_serving(dev, seed: int, n_tree: int = TREE_KEYS, batch: int = BATCH,
         st.root_hash()
 
     return {"launches": launches, "writes_per_s": rate, "batch": one_batch}
+
+
+class DictEngine:
+    """The key-value engine the mirror reads: a dict and a mutation counter
+    (``version()`` counts every write, ``snapshot()`` is sorted)."""
+
+    def __init__(self, items) -> None:
+        self._mu = threading.Lock()
+        self._d = dict(items)
+        self._v = 0
+
+    def version(self) -> int:
+        return self._v
+
+    def get(self, key: bytes):
+        return self._d.get(key)
+
+    def snapshot(self) -> list:
+        with self._mu:
+            return sorted(self._d.items())
+
+    def write(self, changes) -> None:
+        """(key, value) pairs; a None value deletes."""
+        with self._mu:
+            for k, v in changes:
+                if v is None:
+                    self._d.pop(k, None)
+                else:
+                    self._d[k] = v
+                self._v += 1
+
+    def truncate(self) -> None:
+        with self._mu:
+            self._d.clear()
+            self._v += 1
+
+
+def _events(changes) -> list:
+    from merklekv_tpu_torch.cluster.change_event import ChangeEvent, OpKind
+
+    return [ChangeEvent(OpKind.SET if v is not None else OpKind.DEL, k.decode(), v, 0, "smoke")
+            for k, v in changes]
+
+
+def _counters() -> dict:
+    from merklekv_tpu_torch.obs.metrics import get_metrics
+
+    return get_metrics().snapshot()["counters"]
+
+
+def _wait(cond, timeout: float, poll: float = 0.0005) -> bool:
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        if cond():
+            return True
+        time.sleep(poll)
+    return False
+
+
+def _wait_warm(m, base: dict, timeout: float) -> None:
+    """Wait for the mirror's warm build. A failed build is counted and the
+    mirror stays unready; build again in this thread to raise its error."""
+    def done() -> bool:
+        return m.ready() or _counters().get("device.warm_errors", 0) > base.get(
+            "device.warm_errors", 0)
+
+    if not _wait(done, timeout, 0.01):
+        raise AssertionError("the mirror never warmed")
+    if not m.ready():
+        m.root_hex()  # raises the build's error
+        raise AssertionError("the mirror's warm build failed")
+
+
+def _check_mirror(m, eng, golden, rng: np.random.Generator, what: str) -> None:
+    """publish_now, then the stamped root and TREELEVEL slices against the
+    golden tree and the engine's version, and staleness 0."""
+    from merklekv_tpu_torch.merkle.cpu import ref_level_sizes
+
+    m.publish_now()
+    ver = eng.version()
+    if m.published_root_stamped() != (golden.root_hex(), ver):
+        raise AssertionError(f"mirror root/stamp {m.published_root_stamped()} != golden after {what}")
+    if m.staleness() != 0:
+        raise AssertionError(f"mirror staleness {m.staleness()} after publish_now ({what})")
+    n = golden.leaf_count()
+    sizes = ref_level_sizes(n) if n else []
+    lo = int(rng.integers(0, max(1, n - 16)))
+    mid = len(sizes) // 2
+    slices = [(0, lo, lo + 16)] if n else []
+    if sizes:
+        m_mid = sizes[mid]
+        slices.append((mid, max(0, m_mid - 40), m_mid))
+        # Every level's last two nodes: the promotion-chain edge.
+        slices += [(level, size - 2, size) for level, size in enumerate(sizes)]
+    for level, a, b in slices:
+        rows, cnt = golden.level_nodes(level, a, b)
+        if m.level_nodes_stamped(level, a, b) != (rows, cnt, ver):
+            raise AssertionError(f"mirror level {level} [{a}, {b}) differs after {what}")
+
+
+def phase_mirror(dev, seed: int, n_tree: int = TREE_KEYS, batch: int = BATCH,
+                 batches: int = MIRROR_BATCHES) -> dict:
+    """The serving mirror on the card: warm, staged value batches drained by
+    the pump, a structural batch, a truncate and a refill, each checked
+    against the golden tree kept in step."""
+    from merklekv_tpu_torch.cluster.change_event import ChangeEvent, OpKind
+    from merklekv_tpu_torch.cluster.mirror import DeviceTreeMirror
+    from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
+    from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
+
+    rng = np.random.default_rng(seed + 2)
+    items = [(b"inc:%09d" % i, b"v%d" % i) for i in range(n_tree)]
+    eng = DictEngine(items)
+    golden = CpuMerkleState.from_items(items)
+    base = _counters()
+
+    reset_launch_counts()
+    m = DeviceTreeMirror(eng, device=dev)
+    try:
+        t0 = time.perf_counter()
+        m.start_warming()
+        _wait_warm(m, base, 600)
+        warm_s = time.perf_counter() - t0
+        if m.backend_level() != 1:
+            raise AssertionError(f"the mirror warmed on rung {m.backend_level()}, not on the card")
+        _check_mirror(m, eng, golden, rng, "warm")
+
+        fed_s = 0.0
+        max_lag = 0.0
+        checks = 1
+        for seg in range(0, batches, MIRROR_CHECK_EVERY):
+            plan = []
+            for b in range(seg, min(seg + MIRROR_CHECK_EVERY, batches)):
+                idx = rng.integers(0, n_tree, size=batch)
+                changes = [(b"inc:%09d" % i, b"m%d-%d" % (b, i)) for i in idx]
+                plan.append((changes, _events(changes)))
+            # Timed: from the first staging to the published root that covers
+            # the segment's last batch (the pump drains on its own).
+            t = time.perf_counter()
+            for changes, events in plan:
+                eng.write(changes)
+                wm = eng.version()
+                m.on_events(events, wm)
+                max_lag = max(max_lag, m.pump_lag_ms())
+            if not _wait(lambda: (m.published_root_stamped() or (None, -1))[1] >= wm, 120):
+                raise AssertionError("the pump never published the last batch")
+            fed_s += time.perf_counter() - t
+            for changes, _ in plan:
+                golden.apply(changes)
+            _check_mirror(m, eng, golden, rng, f"value batch {seg + len(plan) - 1}")
+            checks += 1
+        rate = batches * batch / fed_s
+
+        # One structural batch: inserts between and after existing keys,
+        # deletes, and value updates.
+        structural = [(b"inc:%09d-x" % i, b"new%d" % i) for i in rng.integers(0, n_tree, size=batch // 2)]
+        structural += [(b"inc:%09d" % (n_tree + i), b"tail%d" % i) for i in range(batch // 4)]
+        structural += [(b"inc:%09d" % i, None) for i in rng.integers(0, n_tree, size=batch // 2)]
+        structural += [(b"inc:%09d" % i, b"s%d" % i) for i in rng.integers(0, n_tree, size=batch // 4)]
+        eng.write(structural)
+        m.on_events(_events(structural), eng.version())
+        golden.apply(structural)
+        _check_mirror(m, eng, golden, rng, "structural batch")
+
+        # TRUNCATE, then a refill of 4096 keys.
+        eng.truncate()
+        m.on_events([ChangeEvent(OpKind.TRUNCATE, "", None, 0, "smoke")], eng.version())
+        refill = [(b"re:%06d" % i, b"r%d" % i) for i in range(batch)]
+        eng.write(refill)
+        m.on_events(_events(refill), eng.version())
+        golden = CpuMerkleState.from_items(refill)
+        _check_mirror(m, eng, golden, rng, "truncate and refill")
+        checks += 2
+        if m.backend_level() != 1:
+            raise AssertionError(f"the mirror left the card: rung {m.backend_level()}")
+    finally:
+        m.close()
+    launches = dict(LAUNCHES)
+    delta = {k: v - base.get(k, 0) for k, v in _counters().items()}
+    bad = {k: delta.get(k, 0) for k in ("device.degraded_total", "device.guard_errors",
+                                         "device.guard_timeouts", "device.pump_errors",
+                                         "device.warm_errors", "device.rewarms")}
+    if any(bad.values()):
+        raise AssertionError(f"the mirror phase met device faults: {bad}")
+    if delta.get("device.pump_batches", 0) < 1:
+        raise AssertionError("the pump drained no batch")
+    if launches["path_rehash"] < 1 or launches["promotion_chain"] < 1:
+        raise AssertionError(f"the mirror did not run the serving kernels: {launches}")
+    log(f"[mirror] {n_tree} keys on rung 1: warm {warm_s:.3f} s; {batches} batches of {batch} "
+        f"value updates staged with on_events: {rate:.0f} writes/s (first staging to the "
+        f"published root covering the last batch, {fed_s:.3f} s over "
+        f"{batches // MIRROR_CHECK_EVERY} segments); pump batches "
+        f"{delta.get('device.pump_batches', 0)}; largest pump_lag_ms {max_lag:.3f}; "
+        f"{checks} checks (stamped root, TREELEVEL leaf/mid/edge slices, staleness 0) == "
+        f"CpuMerkleState incl. a structural batch, TRUNCATE and refill; fault counters "
+        f"{bad}; scatter keys {delta.get('device.scatter_keys', 0)}, "
+        f"restructure keys {delta.get('device.restructure_keys', 0)}; launches {launches}")
+    return {"launches": launches, "writes_per_s": rate, "warm_s": warm_s,
+            "pump_batches": delta.get("device.pump_batches", 0), "max_lag_ms": max_lag}
+
+
+class _QueryWatch:
+    """A thread that reads ``published_root_stamped()`` in a loop and keeps
+    the longest gap between served roots and the longest single call."""
+
+    def __init__(self, m) -> None:
+        self.m = m
+        self.served = 0
+        self.max_gap = 0.0
+        self.max_call = 0.0
+        self.levels: set = set()
+        self._stop = threading.Event()
+        self._t = threading.Thread(target=self._loop, daemon=True, name="smoke-queries")
+        self._t.start()
+
+    def _loop(self) -> None:
+        last_ok = time.perf_counter()
+        while not self._stop.is_set():
+            t = time.perf_counter()
+            snap = self.m.published_root_stamped()
+            now = time.perf_counter()
+            self.levels.add(self.m.backend_level())
+            self.max_call = max(self.max_call, now - t)
+            if snap is not None:
+                self.served += 1
+                self.max_gap = max(self.max_gap, now - last_ok)
+                last_ok = now
+            time.sleep(0.001)
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._t.join(timeout=10)
+
+
+def phase_fault_drill(dev, seed: int, n_keys: int = DRILL_KEYS) -> dict:
+    """Injected faults at the guard seam on the card: a persistent scatter
+    failure invalidates the mirror and re-warms it on the card (its ladder
+    ends at rung 1), the re-warmed tree serves golden roots while the fault
+    persists, and a hang past the deadline never blocks the pump or a
+    query."""
+    from merklekv_tpu_torch.cluster.mirror import DeviceTreeMirror
+    from merklekv_tpu_torch.device.guard import configure
+    from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
+    from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
+    from merklekv_tpu_torch.testing.device_faults import DeviceFaultInjector
+
+    rng = np.random.default_rng(seed + 3)
+    eng = DictEngine((b"drill:%06d" % i, b"v%d" % i) for i in range(n_keys))
+
+    def golden() -> str:
+        return CpuMerkleState.from_items(eng.snapshot()).root_hex()
+
+    def write(tag: str) -> None:
+        changes = [(b"drill:%06d" % i, b"%s-%d" % (tag.encode(), i))
+                   for i in rng.integers(0, n_keys, size=DRILL_BATCH)]
+        eng.write(changes)
+        m.on_events(_events(changes), eng.version())
+
+    def serves_golden() -> bool:
+        m.publish_now()
+        return (m.backend_level() == 1
+                and m.published_root_stamped() == (golden(), eng.version())
+                and m.backend_level() == 1)
+
+    base = _counters()
+    reset_launch_counts()
+    m = DeviceTreeMirror(eng, device=dev, degrade_after=2, scrub_interval_s=0.0,
+                         max_staleness_ms=50.0)
+    watch = inj = None
+    old_deadline = None
+    try:
+        m.start_warming()
+        _wait_warm(m, base, 300)
+        if m.backend_level() != 1 or m.ladder.bottom() != 1:
+            raise AssertionError(f"the drill mirror warmed on rung {m.backend_level()} "
+                                 f"with a ladder down to {m.ladder.bottom()}")
+        watch = _QueryWatch(m)
+
+        # 1. A persistent scatter failure: each failed drain invalidates the
+        # mirror and re-warms it on the card, which serves the golden root.
+        inj = DeviceFaultInjector(match="scatter", mode="fail").install()
+        rewarm_ms = []
+        for _ in range(DRILL_REWARMS):
+            r0 = _counters().get("device.rewarms", 0)
+            t = time.perf_counter()
+            write("fault")
+            if not _wait(lambda: _counters().get("device.rewarms", 0) > r0, 30):
+                raise AssertionError("a drain under the scatter fault did not fail")
+            if not _wait(m.ready, 60):
+                raise AssertionError("the mirror did not re-warm under the fault")
+            rewarm_ms.append((time.perf_counter() - t) * 1e3)
+            if not serves_golden():
+                raise AssertionError("the re-warmed card did not serve the golden root")
+        failures = inj.failures
+
+        # 2. Heal: fresh writes drain on the card again.
+        inj.heal()
+        inj.uninstall()
+        inj = None
+        write("healed")
+        if not serves_golden():
+            raise AssertionError("after heal the card did not serve the golden root")
+        fail_gap, watch.max_gap, watch.max_call = watch.max_gap, 0.0, 0.0
+
+        # 3. A scatter hang past a 200 ms deadline: the pump survives, no
+        # query blocks past the deadline + 100 ms.
+        old_deadline = configure().deadline_ms
+        configure(deadline_ms=DRILL_DEADLINE_MS)
+        timeouts0 = _counters().get("device.guard_timeouts", 0)
+        inj = DeviceFaultInjector(match="scatter", mode="hang").install()
+        t_hang = time.perf_counter()
+        while time.perf_counter() - t_hang < 3.0:
+            write("hang")
+            time.sleep(0.02)
+        hangs = inj.hangs
+        if not (m._pump_thread is not None and m._pump_thread.is_alive()):
+            raise AssertionError("the pump died under the hang")
+        hung = _counters().get("device.guard_timeouts", 0) - timeouts0
+        if hangs < 1 or hung < 1:
+            raise AssertionError(f"the hang never reached the guard ({hangs} hangs, {hung} timeouts)")
+        hang_call, hang_gap = watch.max_call, watch.max_gap
+        if hang_call > (DRILL_DEADLINE_MS + 100.0) / 1e3:
+            raise AssertionError(f"a root query blocked {hang_call * 1e3:.1f} ms under the hang")
+        inj.heal()
+        inj.uninstall()
+        inj = None
+        configure(deadline_ms=old_deadline)
+        old_deadline = None
+        if not _wait(lambda: m.ready() and m.backend_level() == 1, 120, 0.002):
+            raise AssertionError("the mirror did not re-warm on the card after the hang")
+        write("end")
+        if not _wait(serves_golden, 30, 0.01):
+            raise AssertionError("after the hang the card did not serve the golden root")
+        if not m._pump_thread.is_alive():
+            raise AssertionError("the pump died")
+    finally:
+        if watch is not None:
+            watch.stop()
+        if inj is not None:
+            inj.uninstall()
+        if old_deadline is not None:
+            configure(deadline_ms=old_deadline)
+        m.close()
+    launches = dict(LAUNCHES)
+    delta = {k: v - base.get(k, 0) for k, v in _counters().items()}
+    if 0 in watch.levels or delta.get("device.degraded_total", 0):
+        raise AssertionError(f"the drill mirror left the card: rungs seen {watch.levels}, "
+                             f"degraded {delta.get('device.degraded_total', 0)}")
+    log(f"[drill] {n_keys} keys on the card: under a persistent scatter fault "
+        f"({failures} injected failures) {DRILL_REWARMS} failed drains each invalidated and "
+        f"re-warmed on rung 1 in {', '.join(f'{ms:.1f}' for ms in rewarm_ms)} ms (write to "
+        f"ready) and served the golden root; after heal fresh writes served golden; longest "
+        f"gap between served roots {fail_gap * 1e3:.1f} ms. Hang at a {DRILL_DEADLINE_MS:g} ms "
+        f"deadline: {hangs} hung dispatches, {hung} guard timeouts, pump alive, longest query "
+        f"call {hang_call * 1e3:.1f} ms, longest gap {hang_gap * 1e3:.1f} ms, then golden on "
+        f"rung 1. Rungs seen {sorted(watch.levels)}, degraded "
+        f"{delta.get('device.degraded_total', 0)}, re-warms {delta.get('device.rewarms', 0)}, "
+        f"warm errors {delta.get('device.warm_errors', 0)}, served roots {watch.served}; "
+        f"launches {launches}")
+    return {"launches": launches, "rewarm_ms": rewarm_ms, "max_gap_ms": fail_gap * 1e3,
+            "hang_call_ms": hang_call * 1e3}
 
 
 def path_work(pos: np.ndarray, depth: int) -> dict:
@@ -703,16 +1100,24 @@ def main() -> int:
     errs.update(phase_paths(dev, rng)["max_abs_err"])
     reb = phase_rebuild(dev, args.seed)
     srv = phase_serving(dev, args.seed)
-    launches = {k: reb["launches"][k] + srv["launches"][k] for k in srv["launches"]}
+    mir = phase_mirror(dev, args.seed)
+    drill = phase_fault_drill(dev, args.seed)
+    launches = {k: sum(ph["launches"][k] for ph in (reb, srv, mir, drill)) for k in srv["launches"]}
     if min(launches[name] for name in MAIN_PATH_KERNELS) < 1:
         raise AssertionError(f"a kernel was never launched on the main path: {launches}")
     kernels = phase_kernel_times(dev, rng, reb["blocks"], reb["nblocks"], errs, launches)
     device_profile("rebuild+diff 10M x 8", reb.pop("forward"), 3)
-    prof = device_profile("serving batch of 4096 + root read", srv.pop("batch"), 5)
+    batch = srv.pop("batch")
+    prof = device_profile("serving batch of 4096 + root read", batch, 5)
     log(f"[summary] rebuild+diff 10M x 8: {reb['median_s'] * 1e3:.3f} ms, "
-        f"{reb['keys_per_s']:.0f} keys/s; serving 1M: {srv['writes_per_s']:.0f} writes/s, "
-        f"{prof['device_ms']:.4f} ms device and {prof['kernels']:.1f} kernel launches + "
-        f"{prof['copies']:.1f} copies per batch of {BATCH} + root read; card {card}")
+        f"{reb['keys_per_s']:.0f} keys/s; serving 1M: {srv['writes_per_s']:.0f} writes/s "
+        f"(guarded), {prof['device_ms']:.4f} ms device and {prof['kernels']:.1f} kernel "
+        f"launches + {prof['copies']:.1f} copies per batch of {BATCH} + root read; mirror 1M: "
+        f"warm {mir['warm_s']:.3f} s, {mir['writes_per_s']:.0f} writes/s, "
+        f"{mir['pump_batches']} pump batches, largest pump lag {mir['max_lag_ms']:.3f} ms; "
+        f"drill: re-warms {', '.join(f'{ms:.1f}' for ms in drill['rewarm_ms'])} ms, longest query gap "
+        f"{drill['max_gap_ms']:.1f} ms, longest query under hang {drill['hang_call_ms']:.1f} ms; "
+        f"card {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

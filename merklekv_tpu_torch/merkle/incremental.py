@@ -24,22 +24,48 @@ Unlike the JAX state, which rebuilt an immutable tuple of levels per batch,
 value updates write into the level tensors in place; the restructure and
 build paths still produce fresh levels and swap them in.
 
+Every device call runs through the process's dispatch guard
+(``device/guard.py``) under the JAX state's labels — ``build``, ``scatter``,
+``restructure``, ``root``, ``levels`` — so the fault injector matches the
+same seams and the degradation ladder reads the same typed errors. Because
+value updates write in place, an abandoned dispatch must never run late: a
+guarded call holds the state's dispatch lock while it touches the tensors,
+and one the guard has given up on (a hang past the deadline) does nothing
+when it gets there (see ``_run``).
+
+Metrics (the port's registry, the JAX state's names): ``device.scatter_keys``
+/ ``device.restructure_keys`` count the changed leaves of a batch, equal to
+the JAX state's counts; ``device.scatter_bytes`` / ``device.restructure_bytes``
+count the host arrays this state uploads for the batch — unlike the JAX
+state's, with no bucket padding, since eager launches share no compiled
+program; ``device.scatter_dispatch`` / ``device.restructure_dispatch`` are
+host-side dispatch latency histograms.
+
 Host memory: only the sorted key array is kept (values are never stored).
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import Callable, Iterable, Optional, Sequence, TypeVar
 
 import numpy as np
 import torch
 
+from merklekv_tpu_torch.device.guard import DispatchHungError, get_guard
 from merklekv_tpu_torch.merkle.cpu import ref_level_sizes as _ref_level_sizes
 from merklekv_tpu_torch.merkle.packing import pack_leaves
 from merklekv_tpu_torch.merkle.torch_engine import leaf_digests
-from merklekv_tpu_torch.ops.dispatch import hash_node_level, promotion_chain, rehash_paths
+from merklekv_tpu_torch.ops.dispatch import (
+    hash_blocks,
+    hash_node_level,
+    promotion_chain,
+    rehash_paths,
+)
 from merklekv_tpu_torch.ops.sha256 import digest_to_bytes, digests_to_bytes
 from merklekv_tpu_torch.utils.torchenv import as_tensor, resolve_device, words_np
+from merklekv_tpu_torch.utils.tracing import get_metrics, span
 
 __all__ = ["DeviceMerkleState"]
 
@@ -48,12 +74,6 @@ _T = TypeVar("_T")
 
 def _next_pow2(n: int) -> int:
     return 1 << max(1, (n - 1).bit_length())
-
-
-def _bucket(k: int) -> int:
-    """Round a batch size up to a power of two (>= 16), as the JAX state does
-    to share one compiled program across batch sizes."""
-    return _next_pow2(max(k, 16))
 
 
 def _reduce_levels(leaves: torch.Tensor) -> list[torch.Tensor]:
@@ -97,17 +117,34 @@ class DeviceMerkleState:
         # Writes accumulate here and flush as ONE device batch at the next
         # query (or at PENDING_LIMIT).
         self._pending: dict[bytes, Optional[bytes]] = {}
+        # Held by a guarded call while it touches the tensors (see _run).
+        self._dispatch_mu = threading.RLock()
         self.full_rebuilds = 0
         self.incremental_batches = 0
         self.structural_batches = 0
 
     def _run(self, label: str, fn: Callable[[], _T]) -> _T:
-        """The one seam every device call goes through, under the JAX
-        state's labels (build, scatter, restructure, root, levels). The
-        deadline guard and metrics attach here with the serving mirror; for
-        now it only calls ``fn``. It never catches and never reroutes."""
-        del label
-        return fn()
+        """The one seam every device call goes through: ``fn`` runs under
+        the process's dispatch guard with ``label`` (build, scatter,
+        restructure, root, levels), holding the dispatch lock. If the guard
+        abandons the call at its deadline, the call is cancelled: when its
+        thread reaches the lock it raises instead of touching the tensors,
+        so a late in-place scatter can never overwrite a newer batch. A
+        call already inside ``fn`` when the deadline passes finishes under
+        the lock first, and later calls wait for it. It never reroutes."""
+        cancelled = threading.Event()
+
+        def locked() -> _T:
+            with self._dispatch_mu:
+                if cancelled.is_set():
+                    raise RuntimeError(f"dispatch {label!r} ran after it was abandoned")
+                return fn()
+
+        try:
+            return get_guard().run(label, locked)
+        except DispatchHungError:
+            cancelled.set()
+            raise
 
     # ------------------------------------------------------------ loading
     @classmethod
@@ -227,8 +264,10 @@ class DeviceMerkleState:
             # value scatter that failed part-way is healed by the retry,
             # which re-scatters the same leaves and re-hashes their paths,
             # on freshly zeroed arrival counters (a launch cut short may
-            # leave some set). Entries staged by a racing caller win over
-            # the restored batch.
+            # leave some set). Until that retry the levels may be torn, so
+            # the serving mirror drops a state whose drain failed rather
+            # than serve it. Entries staged by a racing caller win over the
+            # restored batch.
             self._counters = None
             merged = dict(pending)
             merged.update(self._pending)
@@ -258,15 +297,23 @@ class DeviceMerkleState:
         packed = pack_leaves(keys, [v for _, v in items])
 
         def scatter() -> None:
-            if self._counters is None:
-                self._counters = torch.zeros(self._capacity - 1, dtype=torch.int32,
-                                             device=self._device)
-            rehash_paths(self._levels, self._counters, self._put(packed.blocks),
+            counters = self._counters
+            if counters is None:
+                counters = self._counters = torch.zeros(
+                    self._capacity - 1, dtype=torch.int32, device=self._device)
+            rehash_paths(self._levels, counters, self._put(packed.blocks),
                          self._put(packed.nblocks), pos)
 
+        t0 = time.perf_counter()
         self._chain = None
         self._run("scatter", scatter)
         self.incremental_batches += 1
+        m = get_metrics()
+        m.inc("device.scatter_keys", len(items))
+        # Positions go up as int32 (ops/merkle_paths.py).
+        m.inc("device.scatter_bytes",
+              int(packed.blocks.nbytes + packed.nblocks.nbytes + 4 * len(pos)))
+        m.observe("device.scatter_dispatch", time.perf_counter() - t0)
 
     # ------------------------------------------------------------ structure
     def _initial_build(self, keys_arr: np.ndarray, values: list) -> None:
@@ -279,8 +326,11 @@ class DeviceMerkleState:
             padded[:n] = digests
             return padded
 
-        padded = self._run("build", padded_leaves)
-        self._adopt_levels(self._dispatch_build(padded))
+        # Full rebuilds are rare (warm-up, empty -> non-empty) and expensive:
+        # one span each, with batch size and capacity.
+        with span("device.rebuild", keys=n, capacity=c):
+            padded = self._run("build", padded_leaves)
+            self._adopt_levels(self._dispatch_build(padded))
         self._set_keys(keys_arr)
         self.full_rebuilds += 1
 
@@ -327,31 +377,25 @@ class DeviceMerkleState:
         # Fresh digests: every upsert (update of a survivor or insert).
         fresh_items = sorted(upserts.items())
         k = len(fresh_items)
-        kb = _bucket(k) if k else 0
+        fresh_keys = [key for key, _ in fresh_items]
+        fresh_pos = np.searchsorted(new_keys, np.array(fresh_keys, dtype=object)).astype(np.int64)
+        packed = pack_leaves(fresh_keys, [v for _, v in fresh_items])
         if k:
-            fresh_keys = np.array([key for key, _ in fresh_items], dtype=object)
-            fresh_pos = np.empty(kb, np.int64)
-            fresh_pos[:k] = np.searchsorted(new_keys, fresh_keys)
-            fresh_pos[k:] = fresh_pos[0]
-
-            def hash_fresh() -> torch.Tensor:
-                digests = leaf_digests([key for key, _ in fresh_items],
-                                       [v for _, v in fresh_items],
-                                       device=self._device)
-                if kb > k:
-                    digests = torch.cat([digests, digests[:1].expand(kb - k, 8)])
-                return digests
-
-            fresh = self._run("restructure", hash_fresh)
+            fresh = self._run("restructure", lambda: hash_blocks(
+                self._put(packed.blocks), self._put(packed.nblocks)))
         else:
-            fresh_pos = np.zeros(0, np.int64)
             fresh = torch.zeros((0, 8), dtype=torch.int32, device=self._device)
 
-        self._adopt_levels(self._dispatch_restructure(
-            gather_padded, fresh_pos, fresh, kb, c_new
-        ))
+        t0 = time.perf_counter()
+        self._adopt_levels(self._dispatch_restructure(gather_padded, fresh_pos, fresh, c_new))
         self._set_keys(new_keys)
         self.structural_batches += 1
+        m = get_metrics()
+        m.inc("device.restructure_keys", k)
+        m.inc("device.restructure_bytes",
+              int(gather_padded.nbytes + fresh_pos.nbytes
+                  + packed.blocks.nbytes + packed.nblocks.nbytes))
+        m.observe("device.restructure_dispatch", time.perf_counter() - t0)
 
     # ------------------------------------------------- device dispatch seam
     # The host planning above is backend-agnostic; only these two hooks build
@@ -365,7 +409,6 @@ class DeviceMerkleState:
         gather_padded: np.ndarray,
         fresh_pos: np.ndarray,
         fresh: torch.Tensor,
-        kb: int,
         c_new: int,
     ) -> list[torch.Tensor]:
         """Gather survivors into shifted slots + scatter fresh digests + full
@@ -373,8 +416,7 @@ class DeviceMerkleState:
 
         gather_padded [c_new] int64: source slot in the OLD leaf level for
         each new slot, or -1 for slots that receive a fresh digest / stay
-        zero. fresh_pos [kb] + fresh [kb, 8]: the changed digests (padded
-        entries duplicate entry 0 — same value, benign)."""
+        zero. fresh_pos [k] + fresh [k, 8]: the changed digests."""
         c_old = self._capacity
 
         def go() -> list[torch.Tensor]:
@@ -382,7 +424,7 @@ class DeviceMerkleState:
             safe = gather.clamp(0, max(c_old - 1, 0))
             base = self._levels[0][safe]
             base[gather < 0] = 0
-            if kb:
+            if len(fresh_pos):
                 base.index_put_((self._put(fresh_pos, torch.int64),), fresh)
             return _reduce_levels(base)
 

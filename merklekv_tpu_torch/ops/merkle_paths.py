@@ -13,9 +13,10 @@ Wrappers (``path_rehash_cuda``, ``promotion_chain_cuda``), as in
 ``ops/sha256_cuda.py``:
 - tensors on the CPU run the plain version below; that is the only case
   that does;
-- CUDA tensors are checked and the kernel is launched on the current stream,
-  or the wrapper raises (a failed build or a refused launch is an error,
-  never a fallback);
+- CUDA tensors are checked and the kernel is launched under
+  ``torch.cuda.device`` of the levels, on that device's current stream (so
+  from any thread), or the wrapper raises (a failed build or a refused
+  launch is an error, never a fallback);
 - ``LAUNCHES["path_rehash"]`` / ``LAUNCHES["promotion_chain"]`` count the
   launches, incremented at the launch and nowhere else.
 

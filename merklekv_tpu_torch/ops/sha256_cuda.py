@@ -19,9 +19,11 @@ Wrappers (``leaf_digests_cuda``, ``node_level_cuda``, ``node_pairs_cuda``):
 - a tensor on the CPU runs the kernel's plain PyTorch version
   (``ops/sha256.py``); that is the only case that does;
 - a CUDA tensor is checked (dtype ``int32``, shape, contiguity, alignment,
-  one device) and the kernel is launched on the current stream, or the
-  wrapper raises — a failed build or a refused launch is an error, never a
-  fallback;
+  one device) and the kernel is launched under ``torch.cuda.device`` of the
+  tensor, on that device's current stream, or the wrapper raises — a failed
+  build or a refused launch is an error, never a fallback. The device is set
+  at every launch because the serving mirror's dispatch guard runs each
+  device call on a new thread;
 - an empty input returns an empty output without a launch (a zero-block grid
   is a launch error);
 - ``LAUNCHES[name]`` counts the kernel's launches, and is incremented at the

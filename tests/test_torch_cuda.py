@@ -9,11 +9,13 @@ machine without JAX too (bypassing ``tests/conftest.py``, which imports it):
 """
 
 import hashlib
+import threading
 
 import numpy as np
 import pytest
 import torch
 
+from merklekv_tpu_torch.device.guard import DispatchGuard
 from merklekv_tpu_torch.merkle import torch_engine as te
 from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState, _reduce_levels
 from merklekv_tpu_torch.ops import merkle_paths as mp
@@ -175,3 +177,37 @@ def test_value_batch_is_one_fused_launch(dev):
     cpu.apply(batch)
     assert card.root_hex() == cpu.root_hex()
     assert sc.LAUNCHES["promotion_chain"] == before["promotion_chain"] + 1
+
+
+@pytest.mark.parametrize("via", ["thread", "guard"])
+def test_launches_from_a_fresh_thread_match_plain(dev, via):
+    """The serving mirror dispatches every device call on a new thread (the
+    guard's): a value batch and a root read launched there must match the
+    plain versions bit for bit."""
+    items = {b"tk%04d" % i: b"v%d" % i for i in range(1000)}
+    card = DeviceMerkleState.from_items(items.items())
+    cpu = DeviceMerkleState.from_items(items.items(), device="cpu")
+    batch = [(b"tk%04d" % i, b"w%d" % i) for i in range(0, 1000, 7)]
+    before = dict(sc.LAUNCHES)
+    out, names = {}, []
+
+    def body():
+        names.append(threading.current_thread().name)
+        card.apply(batch)
+        card.flush_pending()
+        out["root"] = card.root_hex()
+
+    if via == "thread":
+        t = threading.Thread(target=body, name="fresh")
+        t.start()
+        t.join(60)
+        assert not t.is_alive()
+    else:
+        DispatchGuard(deadline_ms=60_000).run("scatter", body)
+    assert names and names[0] != threading.main_thread().name
+    assert sc.LAUNCHES["path_rehash"] == before["path_rehash"] + 1
+    assert sc.LAUNCHES["promotion_chain"] == before["promotion_chain"] + 1
+    cpu.apply(batch)
+    assert out["root"] == cpu.root_hex()
+    for a, b in zip(card.to_numpy_levels(), cpu.to_numpy_levels()):
+        np.testing.assert_array_equal(a, b)

@@ -8,9 +8,12 @@
   GPU they raise instead of running on the CPU.
 - The kernel build fails loudly without ``nvcc``; nothing is built when a
   module is imported.
+- A module copied from the JAX package says so in its docstring, naming
+  the file it copies.
 """
 
 import ast
+import importlib
 import os
 import shutil
 import subprocess
@@ -22,6 +25,8 @@ import pytest
 import torch
 
 import merklekv_tpu_torch
+from merklekv_tpu_torch.cluster.mirror import DeviceTreeMirror
+from merklekv_tpu_torch.device.ladder import build_state_for_rung
 from merklekv_tpu_torch.merkle import diff as t_diff
 from merklekv_tpu_torch.merkle import torch_engine as te
 from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState
@@ -48,8 +53,26 @@ print("ok", len(sys.argv) - 1)
 """
 
 
+# Modules copied, whole or in part, from the JAX package, and what each
+# docstring names as its source.
+COPIES = {
+    "merklekv_tpu_torch.utils.errorkind": "merklekv_tpu/utils/errorkind.py",
+    "merklekv_tpu_torch.utils.tracing": "merklekv_tpu/utils/tracing.py",
+    "merklekv_tpu_torch.obs.metrics": "merklekv_tpu/obs/metrics.py",
+    "merklekv_tpu_torch.obs.flightrec": "merklekv_tpu/obs/flightrec.py",
+    "merklekv_tpu_torch.cluster.retry": "merklekv_tpu/cluster/retry.py",
+    "merklekv_tpu_torch.cluster.change_event": "merklekv_tpu/cluster/change_event.py",
+    "merklekv_tpu_torch.cluster.mirror": "merklekv_tpu/cluster/mirror.py",
+    "merklekv_tpu_torch.device.guard": "merklekv_tpu/device/guard.py",
+    "merklekv_tpu_torch.device.ladder": "merklekv_tpu/device/ladder.py",
+    "merklekv_tpu_torch.testing.device_faults": "merklekv_tpu/testing/device_faults.py",
+    "merklekv_tpu_torch.merkle.cpu_state": "merklekv_tpu.merkle.cpu_state",
+}
+
+
 def test_every_module_imports_without_jax_or_the_jax_package():
     assert len(MODULES) >= 12, MODULES
+    assert set(COPIES) <= set(MODULES), sorted(set(COPIES) - set(MODULES))
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(
         [sys.executable, "-c", _BLOCKED_IMPORT, *MODULES],
@@ -57,6 +80,12 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == f"ok {len(MODULES)}"
+
+
+@pytest.mark.parametrize("module", sorted(COPIES))
+def test_copied_module_docstring_names_its_source(module):
+    doc = " ".join((importlib.import_module(module).__doc__ or "").split())
+    assert "copy of" in doc and f"``{COPIES[module]}" in doc, (module, doc[:200])
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: p.name)
@@ -91,6 +120,8 @@ _ENTRY_POINTS = {
     "DeviceMerkleState.from_items": lambda: DeviceMerkleState.from_items([(b"k", b"v")]),
     "DeviceMerkleState.from_levels": lambda: DeviceMerkleState.from_levels([], []),
     "diff_keys_pair": lambda: t_diff.diff_keys_pair({b"a": b"x" * 32}, {}),
+    "DeviceTreeMirror": lambda: DeviceTreeMirror(object()),
+    "build_state_for_rung(1)": lambda: build_state_for_rung(1, [(b"k", b"v")]),
 }
 
 
