@@ -7,7 +7,9 @@ Phases, one line each (an uncaught failure exits nonzero):
 
 1. build    — nvcc builds the kernels from ``merklekv_tpu_torch/csrc`` (one nvcc
               per source, started together, then one link) into one library
-              under ``build/torch_kernels/``;
+              under ``build/torch_kernels/``, while g++ builds the node's
+              native library (``merklekv_tpu_torch/native``) into
+              ``build/native/``;
               prints the build time, nvcc's register report, and the card's
               name and power limit.
 2. kernels  — each kernel against its plain PyTorch version on the card, bit
@@ -54,12 +56,41 @@ Phases, one line each (an uncaught failure exits nonzero):
               ``scatter`` hang under a 200 ms dispatch deadline: the pump
               survives and no root query blocks past 300 ms. Prints the
               re-warm times and the longest gap between served roots.
-7. kernels line — per kernel: launches on the main path (phases 3 to 6,
-              each counted from 0), its device time (torch.profiler kernel
+7. kernels line — printed after phase 8; per kernel: launches on the main
+              path (phases 3 to 6 and 8, each counted from 0) and, as
+              ``launches_node``, those of phase 8 alone; its device time (torch.profiler kernel
               time), the plain version's time, and its bound; for the two
               serving kernels the ``[times]`` line also gives a modelled
               latency floor (not in the kernels line: it assumes a clock and
               an issue rate, and measures nothing).
+8. node     — the node entry, at 1M keys (config 4) and only through what a
+              user runs. 8a: ``python -m merklekv_tpu_torch`` spawned with
+              replication on the in-process bus and anti-entropy engine
+              ``auto``; the readiness line; 1M keys loaded over TCP (pipelined
+              MSET); HASH polled until METRICS shows the mirror on rung 1;
+              the stamped HASH's version == ``device.tree_version``, HASH ==
+              the golden root, TREELEVEL slices (each level's promotion edge
+              included) == the golden tree, again after a value batch; the
+              mirror's counters nonzero and its fault counters 0; SIGTERM,
+              exit 0. 8b: nodes built in this process by
+              ``__main__.start`` (so the launch counters are readable): node
+              A, 50 batches of 4096 SETs over TCP each closed by a forced
+              HASH (every 10th checked against a ``CpuMerkleState`` kept in
+              step); node B = A's keys with 1% diverged (half new values,
+              half deleted, all older than A's writes), a bisect SYNC from
+              A with B's replication off, repeated while a cycle past its
+              120 s budget left a checkpoint to resume (at most 8 cycles):
+              the keys repaired over the cycles == injected, the leaf kernel
+              ran in each cycle's leaf pass; then B's replication on, its
+              mirror on rung 1, roots of A, B and the golden tree equal and
+              B's TREELEVEL slices == golden; then a 3-node
+              ``sync_multi`` over 100,000 keys (past the 65,536-key device
+              threshold) on nodes without mirrors: per-peer divergence ==
+              injected, and the leaf kernel ran for its leaf pass. Asserts
+              launches of ``path_rehash`` and ``promotion_chain`` from A's
+              mirror and zero fallbacks, degradations, guard, pump and warm
+              errors and re-warms. Prints load, warm, writes/s, largest
+              ``pump_lag_ms``, SYNC and multi-sync wall times.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, the script exits nonzero and prints no result.
@@ -93,6 +124,14 @@ DRILL_KEYS = 65_536
 DRILL_BATCH = 256
 DRILL_DEADLINE_MS = 200.0
 DRILL_REWARMS = 3
+NODE_KEYS = TREE_KEYS
+NODE_BATCHES = 50
+NODE_CHECK_EVERY = 10
+NODE_DIVERGED = 0.01
+NODE_MSET = 500
+NODE_PIPELINE = 64
+NODE_SYNC_CYCLES = 8
+MULTI_KEYS = 100_000
 
 # Bound arithmetic (H100 SXM, NVIDIA data sheet): 3.35 TB/s HBM. Shifts and
 # logic run only on the 64 INT32 lanes of an SM: 132 SMs x 64 x 1.98 GHz
@@ -119,7 +158,7 @@ ADDS_NODE = ADDS_MSG_BLOCK + ADDS_PAD_BLOCK
 # shorter than that issue time.) Memory latency comes on top.
 WARP_CYCLES_PER_OP = 2
 CLOCK_HZ = 1.98e9
-# Kernels the main path (phases 3 to 6) must launch; node_pairs is held
+# Kernels the main path (phases 3 to 6 and 8) must launch; node_pairs is held
 # against its plain version in phase 2 but no longer runs on the main path.
 MAIN_PATH_KERNELS = ("leaf", "node_level", "path_rehash", "promotion_chain")
 
@@ -241,15 +280,26 @@ def plain_root(leaves):
 # ------------------------------------------------------------------ phases
 
 def phase_build() -> dict:
+    """The CUDA kernels (nvcc) and, at the same time, the node's native
+    library (g++, phase 8), both from the sources in the checkout."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from merklekv_tpu_torch import native_bindings
     from merklekv_tpu_torch.ops.sha256_cuda import build_kernels
 
     t0 = time.perf_counter()
-    k = build_kernels()
-    total = time.perf_counter() - t0
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(native_bindings.ensure_built)
+        k = build_kernels()
+        total = time.perf_counter() - t0
+        lib = native.result()
+    native_s = time.perf_counter() - t0
     regs = [ln.strip() for ln in k.build_log.splitlines()
             if "registers" in ln or "Compiling entry" in ln]
     log(f"[build] nvcc {k.build_seconds:.2f} s (one compile per source, in parallel, "
-        f"then one link), load {total:.2f} s: {k.path.name}")
+        f"then one link), load {total:.2f} s: {k.path.name}; native library (g++, one "
+        f"compile per source, in parallel) ready after {native_s:.2f} s: "
+        f"{lib.rsplit('/', 1)[-1]}")
     for ln in regs:
         log(f"[build] ptxas {ln}")
     return {"seconds": total}
@@ -930,6 +980,374 @@ def phase_fault_drill(dev, seed: int, n_keys: int = DRILL_KEYS) -> dict:
             "hang_call_ms": hang_call * 1e3}
 
 
+# ------------------------------------------------------------ phase 8: node
+
+def _node_items(n: int) -> list:
+    return [(b"inc:%09d" % i, b"v%d" % i) for i in range(n)]
+
+
+def _node_config(path, topic: str, replication: bool = True) -> None:
+    """A node's TOML: replication on the in-process bus (which gives the
+    node its serving mirror), anti-entropy engine ``auto`` and bisect walks."""
+    with open(path, "w") as f:
+        f.write(f'[replication]\nenabled = {"true" if replication else "false"}\n'
+                f'mqtt_broker = "local"\ntopic_prefix = "{topic}"\n'
+                '[anti_entropy]\nengine = "auto"\nmode = "bisect"\n')
+
+
+def _client(port: int):
+    from merklekv_tpu_torch.client import MerkleKVClient
+
+    c = MerkleKVClient("127.0.0.1", port, timeout=600)
+    c.connect()
+    return c
+
+
+def _tcp_load(c, items, per_cmd: int = NODE_MSET, depth: int = NODE_PIPELINE) -> None:
+    """Load ``items`` over TCP: MSET commands of ``per_cmd`` pairs, ``depth``
+    commands pipelined per round trip."""
+    cmds = ["MSET " + " ".join(f"{k.decode()} {v.decode()}" for k, v in items[i:i + per_cmd])
+            for i in range(0, len(items), per_cmd)]
+    for i in range(0, len(cmds), depth):
+        got = c.pipeline(cmds[i:i + depth])
+        if any(r != "OK" for r in got):
+            raise AssertionError(f"MSET over TCP failed: {[r for r in got if r != 'OK'][:3]}")
+
+
+def _stamped_hash(c, force: bool = False) -> tuple:
+    """``HASH vs=01`` (``vs=03`` forces a refresh): (root hex, tree version,
+    lag) as the node serves it."""
+    resp = c._request("HASH vs=03" if force else "HASH vs=01").strip()
+    fields = resp.split(" ")
+    if fields[0] != "HASH" or len(fields) != 4:
+        raise AssertionError(f"no stamped HASH answer: {resp!r}")
+    return fields[1], int(fields[2]), int(fields[3])
+
+
+def _wait_node_mirror(c, timeout: float) -> dict:
+    """Poll HASH (which starts the mirror's warm) until METRICS shows the
+    mirror on rung 1 with a published tree version."""
+    end = time.monotonic() + timeout
+    while time.monotonic() < end:
+        c.hash()
+        m = c.metrics()
+        if m.get("device.backend_level") == "1" and "device.tree_version" in m:
+            return m
+        time.sleep(0.05)
+    raise AssertionError(f"the node's mirror never reached rung 1: {c.metrics()}")
+
+
+def _check_node_tree(c, golden, rng: np.random.Generator, what: str) -> int:
+    """The node's HASH and TREELEVEL slices (a few per level, each level's
+    promotion edge included) against the golden tree; returns the slices
+    checked."""
+    from merklekv_tpu_torch.merkle.cpu import ref_level_sizes
+
+    root = c.hash(force=True)
+    if root != golden.root_hex():
+        raise AssertionError(f"HASH {root} != golden {golden.root_hex()} after {what}")
+    checked = 0
+    n = golden.leaf_count()
+    for level, m in enumerate(ref_level_sizes(n)):
+        mid = int(rng.integers(0, m))
+        for lo, hi in ((0, 4), (mid, mid + 4), (max(0, m - 3), m)):
+            rows, cnt = c.tree_level(level, lo, hi)
+            want, wn = golden.level_nodes(level, lo, hi)
+            if cnt != wn or [(i, bytes.fromhex(h)) for i, h in rows] != want:
+                raise AssertionError(f"TREELEVEL {level} [{lo}, {hi}) differs after {what}")
+            checked += 1
+    return checked
+
+
+_NODE_FAULTS = ("device.fallbacks", "device.degraded_total", "device.guard_errors",
+                "device.pump_errors", "device.warm_errors", "device.rewarms")
+
+
+def phase_node_entry(seed: int, n_keys: int = NODE_KEYS, batch: int = BATCH) -> dict:
+    """8a: ``python -m merklekv_tpu_torch`` as a user starts it, driven over
+    TCP only."""
+    import os
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
+
+    rng = np.random.default_rng(seed + 8)
+    root_dir = Path(__file__).resolve().parent
+    items = _node_items(n_keys)
+    with tempfile.TemporaryDirectory(prefix="mkv-smoke-") as tmp:
+        cfg = os.path.join(tmp, "node.toml")
+        _node_config(cfg, "smoke-entry")
+        env = dict(os.environ, PYTHONPATH=str(root_dir))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "merklekv_tpu_torch", "--config", cfg, "--port", "0"],
+            cwd=str(root_dir), env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            line = proc.stdout.readline()
+            if not line.startswith("merklekv_tpu_torch listening on "):
+                proc.kill()
+                raise AssertionError(f"no readiness line: {line!r} {proc.stderr.read()[-2000:]}")
+            start_s = time.perf_counter() - t0
+            port = int(line.split()[3].rsplit(":", 1)[1])
+            c = _client(port)
+            t = time.perf_counter()
+            _tcp_load(c, items)
+            load_s = time.perf_counter() - t
+            golden = CpuMerkleState.from_items(items)
+            t = time.perf_counter()
+            m = _wait_node_mirror(c, 900)
+            warm_s = time.perf_counter() - t
+            root, ver, lag = _stamped_hash(c)
+            if str(ver) != m["device.tree_version"]:
+                raise AssertionError(f"stamped HASH version {ver} != device.tree_version "
+                                     f"{m['device.tree_version']}")
+            if root != golden.root_hex():
+                raise AssertionError("the node's stamped HASH differs from the golden root")
+            slices = _check_node_tree(c, golden, rng, "the TCP load")
+            # One value batch after the warm, so the pump drains on the card.
+            idx = rng.integers(0, n_keys, size=batch)
+            changes = [(b"inc:%09d" % i, b"e%d" % i) for i in idx]
+            _tcp_load(c, changes)
+            golden.apply(changes)
+            slices += _check_node_tree(c, golden, rng, "a value batch")
+            m = c.metrics()
+            if m.get("device.backend_level") != "1":
+                raise AssertionError(f"the node left rung 1: {m.get('device.backend_level')}")
+            bad = {k: int(m.get(k, 0)) for k in _NODE_FAULTS}
+            counters = {k: int(m.get(k, 0)) for k in ("device.pump_batches", "device.scatter_keys")}
+            if any(bad.values()) or not all(counters.values()):
+                raise AssertionError(f"node METRICS: faults {bad}, mirror counters {counters}")
+            c.close()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(120)
+            if rc != 0:
+                raise AssertionError(f"the node exited {rc} on SIGTERM: {proc.stderr.read()[-2000:]}")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(30)
+    log(f"[node] entry: python -m merklekv_tpu_torch ready in {start_s:.3f} s; {n_keys} keys loaded "
+        f"over TCP (MSET x {NODE_MSET}, {NODE_PIPELINE} pipelined) in {load_s:.3f} s; mirror on "
+        f"rung 1 in {warm_s:.3f} s (device.tree_version {ver} == stamped HASH version, lag "
+        f"{lag}); HASH == golden root and {slices} TREELEVEL slices == golden tree (promotion "
+        f"edges included), before and after a batch of {batch}; mirror counters {counters}; "
+        f"faults {bad}; SIGTERM exit 0")
+    return {"load_s": load_s, "warm_s": warm_s, "start_s": start_s}
+
+
+def _start_node(tmp: str, name: str, replication: bool = True):
+    import os
+
+    from merklekv_tpu_torch.__main__ import parse_config, start
+
+    cfg = os.path.join(tmp, f"{name}.toml")
+    _node_config(cfg, f"smoke-{name}", replication)
+    return start(parse_config(["--config", cfg, "--port", "0"]))
+
+
+def _engine_load(engine, items, deletes=(), ts=None) -> None:
+    """Load straight into a node's engine (before its mirror warms, so the
+    warm reads it): the writes, then the deletes, at time ``ts`` (ns;
+    ``None`` = now) and ``ts + 1``."""
+    for i in range(0, len(items), 65536):
+        t = time.time_ns() if ts is None else ts
+        engine.apply_batch([(k, v, t) for k, v in items[i:i + 65536]])
+    if deletes:
+        t = time.time_ns() if ts is None else ts + 1
+        engine.apply_batch([(k, None, t) for k in deletes])
+
+
+def _diverge(rng: np.random.Generator, keys: list, fraction: float, tag: bytes):
+    """Pick ``fraction`` of ``keys``: half get a new value, half are deleted."""
+    pick = rng.choice(len(keys), size=int(len(keys) * fraction), replace=False)
+    half = len(pick) // 2
+    changed = {keys[i]: tag + b"%d" % i for i in pick[:half]}
+    deleted = [keys[i] for i in pick[half:]]
+    return changed, deleted
+
+
+def phase_node_sync(seed: int, n_keys: int = NODE_KEYS, batch: int = BATCH,
+                    batches: int = NODE_BATCHES, multi_keys: int = MULTI_KEYS) -> dict:
+    """8b: nodes built in-process by ``__main__.start``: serving writes over
+    TCP with a forced HASH after each batch, a bisect SYNC of a 1%-diverged
+    node, and a 3-node multi-sync past the device threshold."""
+    import tempfile
+
+    from merklekv_tpu_torch.cluster.sync import _DEVICE_THRESHOLD
+    from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
+    from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
+
+    rng = np.random.default_rng(seed + 9)
+    items = _node_items(n_keys)
+    base = _counters()
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="mkv-smoke-") as tmp:
+        try:
+            reset_launch_counts()
+            a = _start_node(tmp, "a")
+            runs.append(a)
+            _engine_load(a.engine, items)
+            ca = _client(a.port)
+            t = time.perf_counter()
+            _wait_node_mirror(ca, 900)
+            warm_s = time.perf_counter() - t
+            golden = CpuMerkleState.from_items(items)
+            checks = _check_node_tree(ca, golden, rng, "the warm")
+
+            # Value batches over TCP, each closed by a forced HASH.
+            before = dict(LAUNCHES)
+            max_lag = 0.0
+            served_s = 0.0
+            for b in range(batches):
+                idx = rng.integers(0, n_keys, size=batch)
+                changes = [(b"inc:%09d" % i, b"w%d-%d" % (b, i)) for i in idx]
+                cmds = [f"SET {k.decode()} {v.decode()}" for k, v in changes]
+                t = time.perf_counter()
+                got = ca.pipeline(cmds)
+                root = ca.hash(force=True)
+                served_s += time.perf_counter() - t
+                if got.count("OK") != len(cmds):
+                    raise AssertionError(f"batch {b}: SET over TCP failed")
+                max_lag = max(max_lag, float(ca.metrics().get("device.pump_lag_ms", 0)))
+                golden.apply(changes)
+                if (b + 1) % NODE_CHECK_EVERY == 0:
+                    if root != golden.root_hex():
+                        raise AssertionError(f"forced HASH after batch {b} != CpuMerkleState")
+                    checks += _check_node_tree(ca, golden, rng, f"batch {b}")
+            rate = batches * batch / served_s
+            serve_launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            if serve_launches["path_rehash"] < 1 or serve_launches["promotion_chain"] < 1:
+                raise AssertionError(f"the node's mirror did not run the serving kernels: "
+                                     f"{serve_launches}")
+
+            # B: A's content with 1% diverged (half other values, half
+            # deleted), then a bisect SYNC from A. B is the stale replica:
+            # its writes are older than A's, so the walk's one-way repair
+            # and the last-writer-wins install of a resumed cycle's pending
+            # repairs (the reference's rule) both take A's side.
+            # B repairs with replication off (the procedure for a diverged
+            # node), so its mirror does not restructure a 1M-key tree for
+            # every repaired insert; it warms on the card afterwards.
+            final = a.engine.snapshot()
+            keys = [k for k, _ in final]
+            changed, deleted = _diverge(rng, keys, NODE_DIVERGED, b"div")
+            bnode = _start_node(tmp, "b", replication=False)
+            runs.append(bnode)
+            _engine_load(bnode.engine, [(k, changed.get(k, v)) for k, v in final], deleted,
+                         ts=1)
+            cb = _client(bnode.port)
+            # The deletions shift every leaf position after the first one,
+            # so the walk repairs nearly the whole key range; a cycle past
+            # its budget (SYNC_PEER's op_deadline) checkpoints its cursor
+            # and the next SYNC resumes there, as a node's periodic loop
+            # would. Each cycle counts the keys it repaired.
+            sm, peer = bnode.node.sync_manager, f"127.0.0.1:{a.port}"
+            # What one request of the walk's range repair costs A here.
+            t = time.perf_counter()
+            for i in range(5):
+                ca.leaf_hashes_page(512, (b"inc:%09d" % (i * n_keys // 5)).decode())
+            page_ms = (time.perf_counter() - t) * 200
+            t = time.perf_counter()
+            for i in range(5):
+                ca.mget([(b"inc:%09d" % (i * n_keys // 5)).decode()])
+            mget_ms = (time.perf_counter() - t) * 200
+            before = dict(LAUNCHES)
+            t = time.perf_counter()
+            found, cycles = 0, []
+            while not cycles or sm.session_for(peer) is not None:
+                if len(cycles) == NODE_SYNC_CYCLES:
+                    raise AssertionError(f"SYNC B <- A still resuming after {cycles}")
+                c0 = time.perf_counter()
+                if not cb.sync_with("127.0.0.1", a.port):
+                    raise AssertionError(f"SYNC B <- A failed in cycle {len(cycles) + 1}")
+                rep = sm.last_report
+                if rep.mode != "bisect":
+                    raise AssertionError(f"SYNC cycle {len(cycles) + 1} walked {rep.mode!r}")
+                found += rep.divergent
+                cycles.append((round(time.perf_counter() - c0, 3), rep.divergent))
+            sync_s = time.perf_counter() - t
+            sync_launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            injected = len(changed) + len(deleted)
+            if found != injected:
+                raise AssertionError(f"SYNC found {found} divergent keys in {cycles}, "
+                                     f"injected {injected}")
+            if sync_launches["leaf"] < len(cycles):
+                raise AssertionError(f"the SYNC leaf passes did not run the leaf kernel: "
+                                     f"{sync_launches}")
+            if not cb.replicate("enable"):
+                raise AssertionError("REPLICATE enable on B failed")
+            t = time.perf_counter()
+            _wait_node_mirror(cb, 900)
+            warm_b_s = time.perf_counter() - t
+            root_a, root_b = ca.hash(force=True), cb.hash(force=True)
+            if not root_a == root_b == golden.root_hex():
+                raise AssertionError(f"roots after SYNC: A {root_a}, B {root_b}, golden "
+                                     f"{golden.root_hex()}")
+            checks += _check_node_tree(cb, golden, rng, "the SYNC")
+            for c in (ca, cb):
+                if c.metrics().get("device.backend_level") != "1":
+                    raise AssertionError("a node's mirror left rung 1")
+                c.close()
+            for r in runs:
+                r.close()
+            runs.clear()
+
+            # Three nodes without mirrors: the multi-sync's leaf pass and
+            # masks are the only device work.
+            if multi_keys < _DEVICE_THRESHOLD:
+                raise AssertionError(f"{multi_keys} union keys do not cross the device "
+                                     f"threshold {_DEVICE_THRESHOLD}")
+            m_items = [(b"ms:%09d" % i, b"m%d" % i) for i in range(multi_keys)]
+            m_keys = [k for k, _ in m_items]
+            local = _start_node(tmp, "l", replication=False)
+            runs.append(local)
+            _engine_load(local.engine, m_items)
+            want = {}
+            for name, tag in (("p1", b"one"), ("p2", b"two")):
+                ch, dl = _diverge(rng, m_keys, NODE_DIVERGED, tag)
+                peer = _start_node(tmp, name, replication=False)
+                runs.append(peer)
+                _engine_load(peer.engine, [(k, ch.get(k, v)) for k, v in m_items], dl)
+                want[f"127.0.0.1:{peer.port}"] = len(ch) + len(dl)
+            before = dict(LAUNCHES)
+            t = time.perf_counter()
+            mrep = local.node.sync_manager.sync_multi(list(want))
+            multi_s = time.perf_counter() - t
+            multi_launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            if mrep.per_peer_divergent != want or mrep.union_keys < _DEVICE_THRESHOLD:
+                raise AssertionError(f"multi-sync divergence {mrep.per_peer_divergent} over "
+                                     f"{mrep.union_keys} keys, injected {want}")
+            if multi_launches["leaf"] < 1:
+                raise AssertionError(f"the multi-sync leaf pass did not run the leaf kernel: "
+                                     f"{multi_launches}")
+        finally:
+            for r in runs:
+                r.close()
+    launches = dict(LAUNCHES)
+    delta = {k: v - base.get(k, 0) for k, v in _counters().items()}
+    bad = {k: delta.get(k, 0) for k in _NODE_FAULTS + ("device.guard_timeouts",)}
+    if any(bad.values()):
+        raise AssertionError(f"the node phase met device faults: {bad}")
+    log(f"[node] in-process nodes: A warm {warm_s:.3f} s on rung 1; {batches} batches of {batch} "
+        f"SETs over TCP, each closed by a forced HASH: {rate:.0f} writes/s; largest "
+        f"device.pump_lag_ms {max_lag:g}; {checks} HASH/TREELEVEL checks == CpuMerkleState; "
+        f"serving launches {serve_launches}")
+    log(f"[node] bisect SYNC of B ({n_keys} keys, {injected} diverged: {len(changed)} values, "
+        f"{len(deleted)} deletes) from A: {sync_s:.3f} s in {len(cycles)} cycles (s, keys "
+        f"repaired: {cycles}), last cycle {rep.nodes_compared} nodes compared in {rep.rounds} "
+        f"rounds, {rep.bytes_received} B received; A answers a HASHPAGE of 512 rows in "
+        f"{page_ms:.2f} ms, an MGET of one key in {mget_ms:.3f} ms; then B's mirror on rung 1 "
+        f"in {warm_b_s:.3f} s; roots of A, B and golden equal; launches {sync_launches}")
+    log(f"[node] 3-node sync_multi over {mrep.union_keys} union keys (device threshold "
+        f"{_DEVICE_THRESHOLD}): {multi_s:.3f} s, per-peer divergence "
+        f"{sorted(mrep.per_peer_divergent.values())} == injected; launches {multi_launches}; "
+        f"faults {bad}; phase launches {launches}")
+    return {"launches": launches, "writes_per_s": rate, "warm_s": warm_s, "max_lag_ms": max_lag,
+            "sync_s": sync_s, "multi_s": multi_s}
+
+
 def path_work(pos: np.ndarray, depth: int) -> dict:
     """What the fused kernel must do for these sorted positions on a
     2^depth-leaf tree: distinct touched internal nodes (each hashed once)
@@ -1102,10 +1520,16 @@ def main() -> int:
     srv = phase_serving(dev, args.seed)
     mir = phase_mirror(dev, args.seed)
     drill = phase_fault_drill(dev, args.seed)
-    launches = {k: sum(ph["launches"][k] for ph in (reb, srv, mir, drill)) for k in srv["launches"]}
+    entry = phase_node_entry(args.seed)
+    node = phase_node_sync(args.seed)
+    phases = {"rebuild": reb, "serving": srv, "mirror": mir, "drill": drill, "node": node}
+    launches = {k: sum(ph["launches"][k] for ph in phases.values()) for k in srv["launches"]}
     if min(launches[name] for name in MAIN_PATH_KERNELS) < 1:
         raise AssertionError(f"a kernel was never launched on the main path: {launches}")
+    log("[launches] " + "; ".join(f"{name} {ph['launches']}" for name, ph in phases.items()))
     kernels = phase_kernel_times(dev, rng, reb["blocks"], reb["nblocks"], errs, launches)
+    for k in kernels:
+        k["launches_node"] = node["launches"][k["name"]]
     device_profile("rebuild+diff 10M x 8", reb.pop("forward"), 3)
     batch = srv.pop("batch")
     prof = device_profile("serving batch of 4096 + root read", batch, 5)
@@ -1117,7 +1541,10 @@ def main() -> int:
         f"{mir['pump_batches']} pump batches, largest pump lag {mir['max_lag_ms']:.3f} ms; "
         f"drill: re-warms {', '.join(f'{ms:.1f}' for ms in drill['rewarm_ms'])} ms, longest query gap "
         f"{drill['max_gap_ms']:.1f} ms, longest query under hang {drill['hang_call_ms']:.1f} ms; "
-        f"card {card}")
+        f"node 1M: load over TCP {entry['load_s']:.3f} s, warm {entry['warm_s']:.3f} s (in-process "
+        f"{node['warm_s']:.3f} s), {node['writes_per_s']:.0f} writes/s with a forced HASH per "
+        f"batch, largest pump lag {node['max_lag_ms']:g} ms, bisect SYNC {node['sync_s']:.3f} s, "
+        f"3-node sync_multi {node['multi_s']:.3f} s; card {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,12 @@ The whole comparison is one elementwise pass over stacked replica tensors:
   - winners for reconciliation come back as index lists, not values.
 
 These are plain torch elementwise ops, as the JAX package left them to XLA
-outside any Pallas kernel. The mesh-routed ``divergence_masks_engine`` is
-not here yet: it comes with the multi-GPU work.
+outside any Pallas kernel. ``divergence_masks_np`` is a copy of the JAX
+package's host twin. ``divergence_masks_engine`` is the engine boundary the
+anti-entropy manager calls: on one GPU it is ``divergence_masks`` on the
+given device. The JAX package shards it over a multi-device mesh past
+``SHARDED_DIFF_MIN_KEYS``; that branch waits for the multi-GPU work (ROADMAP
+Queue A item 3). The masks are bit-identical either way.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ __all__ = [
     "align_replicas",
     "divergence_vs_ref",
     "divergence_masks",
+    "divergence_masks_np",
+    "divergence_masks_engine",
     "diff_keys_multi",
     "diff_keys_pair",
 ]
@@ -90,6 +96,21 @@ def divergence_masks(digests: torch.Tensor, present: torch.Tensor) -> torch.Tens
 
     Row 0 is all-False by construction."""
     return divergence_vs_ref(digests, present, digests[0:1], present[0:1])
+
+
+def divergence_masks_np(digests: np.ndarray, present: np.ndarray) -> np.ndarray:
+    """Host-side twin of :func:`divergence_masks` for small keyspaces where
+    initializing an accelerator backend is not worth it (and, in spawned
+    server processes, must be avoided unless explicitly configured)."""
+    return divergence_vs_ref(digests, present, digests[0:1], present[0:1])
+
+
+def divergence_masks_engine(digests, present, device=None) -> torch.Tensor:
+    """The N-replica diff behind the engine boundary: ``[R, N]`` bool masks
+    of ``digests`` ``[R, N, 8]`` uint32 and ``present`` ``[R, N]`` bool
+    (numpy arrays or tensors), computed on ``device`` (``None`` = CUDA)."""
+    dev = resolve_device(device)
+    return divergence_masks(as_tensor(digests, dev), as_tensor(present, dev, torch.bool))
 
 
 def diff_keys_multi(aligned: AlignedReplicas, device=None) -> dict[int, list[bytes]]:

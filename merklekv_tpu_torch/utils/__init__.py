@@ -1,1 +1,2 @@
-"""Host-side helpers of the torch port (device selection, word boundary)."""
+"""Host-side helpers of the torch port (device selection for tensors and for
+a node, the numpy word boundary, spans and metrics, error classes)."""

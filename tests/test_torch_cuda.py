@@ -211,3 +211,86 @@ def test_launches_from_a_fresh_thread_match_plain(dev, via):
     assert out["root"] == cpu.root_hex()
     for a, b in zip(card.to_numpy_levels(), cpu.to_numpy_levels()):
         np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------------------ the node
+
+def _node(monkeypatch, **anti_entropy):
+    """A node started as ``python -m merklekv_tpu_torch`` starts it, on the
+    card (``MERKLEKV_TORCH_DEVICE`` unset means CUDA), with replication on
+    the in-process bus so it serves from its mirror."""
+    from merklekv_tpu_torch.__main__ import start
+    from merklekv_tpu_torch.config import Config
+
+    monkeypatch.delenv("MERKLEKV_TORCH_DEVICE", raising=False)
+    cfg = Config()
+    cfg.port = 0
+    cfg.replication.enabled = True
+    cfg.replication.mqtt_broker = "local"
+    cfg.replication.topic_prefix = f"cuda-{id(cfg)}"
+    for k, v in anti_entropy.items():
+        setattr(cfg.anti_entropy, k, v)
+    return start(cfg)
+
+
+def _client(run):
+    from merklekv_tpu_torch.client import MerkleKVClient
+
+    return MerkleKVClient("127.0.0.1", run.port, timeout=120).connect()
+
+
+def _serves_from_mirror(c) -> bool:
+    import time
+
+    end = time.monotonic() + 120
+    while time.monotonic() < end:
+        c.hash()
+        if c.metrics().get("device.backend_level") == "1":
+            return True
+        time.sleep(0.05)
+    return False
+
+
+def test_node_serves_the_golden_root_from_the_card(dev, monkeypatch):
+    from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
+
+    run = _node(monkeypatch)
+    try:
+        c = _client(run)
+        items = {b"n%05d" % i: b"v%d" % i for i in range(5000)}
+        c.mset({k.decode(): v.decode() for k, v in items.items()})
+        sc.reset_launch_counts()
+        assert _serves_from_mirror(c)
+        assert sc.LAUNCHES["leaf"] >= 1 and sc.LAUNCHES["node_level"] >= 1
+        golden = CpuMerkleState.from_items(items.items())
+        assert c.hash(force=True) == golden.root_hex()
+        c.set("n00007", "changed")
+        golden.apply([(b"n00007", b"changed")])
+        assert c.hash(force=True) == golden.root_hex()
+        assert sc.LAUNCHES["path_rehash"] >= 1 and sc.LAUNCHES["promotion_chain"] >= 1
+        rows, n = c.tree_level(1, 0, 4)
+        assert n == 5000 and [(i, bytes.fromhex(h)) for i, h in rows] == golden.level_nodes(1, 0, 4)[0]
+        c.close()
+    finally:
+        run.close()
+
+
+def test_node_sync_runs_its_leaf_pass_on_the_card(dev, monkeypatch):
+    a = _node(monkeypatch, engine="tpu")
+    b = _node(monkeypatch, engine="tpu")
+    try:
+        ca, cb = _client(a), _client(b)
+        ca.mset({f"s{i:05d}": f"v{i}" for i in range(3000)})
+        cb.mset({f"s{i:05d}": f"w{i}" for i in range(0, 3000, 5)})
+        fallbacks = int(cb.metrics().get("device.fallbacks", 0))  # the process's registry
+        sc.reset_launch_counts()
+        assert cb.sync_with("127.0.0.1", a.port)
+        assert sc.LAUNCHES["leaf"] >= 1
+        assert b.engine.snapshot() == a.engine.snapshot()
+        assert cb.hash(force=True) == ca.hash(force=True)
+        assert int(cb.metrics().get("device.fallbacks", 0)) == fallbacks
+        ca.close()
+        cb.close()
+    finally:
+        b.close()
+        a.close()

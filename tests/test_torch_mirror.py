@@ -33,7 +33,7 @@ from merklekv_tpu.cluster.change_event import ChangeEvent as JaxEvent
 from merklekv_tpu.cluster.change_event import OpKind as JaxOp
 from merklekv_tpu.cluster.mirror import DeviceTreeMirror as JaxMirror
 from merklekv_tpu.merkle.incremental import DeviceMerkleState as JaxState
-from merklekv_tpu.native_bindings import NativeEngine
+from merklekv_tpu_torch.native_bindings import NativeEngine
 from merklekv_tpu.obs.metrics import get_metrics as jax_metrics
 from merklekv_tpu_torch.cluster import mirror as mirror_mod
 from merklekv_tpu_torch.cluster.change_event import ChangeEvent, OpKind

@@ -25,7 +25,11 @@ import pytest
 import torch
 
 import merklekv_tpu_torch
+from merklekv_tpu_torch import native_bindings
+from merklekv_tpu_torch.__main__ import start
+from merklekv_tpu_torch.cluster import sync as t_sync
 from merklekv_tpu_torch.cluster.mirror import DeviceTreeMirror
+from merklekv_tpu_torch.config import Config
 from merklekv_tpu_torch.device.ladder import build_state_for_rung
 from merklekv_tpu_torch.merkle import diff as t_diff
 from merklekv_tpu_torch.merkle import torch_engine as te
@@ -67,6 +71,24 @@ COPIES = {
     "merklekv_tpu_torch.device.ladder": "merklekv_tpu/device/ladder.py",
     "merklekv_tpu_torch.testing.device_faults": "merklekv_tpu/testing/device_faults.py",
     "merklekv_tpu_torch.merkle.cpu_state": "merklekv_tpu.merkle.cpu_state",
+    "merklekv_tpu_torch.config": "merklekv_tpu/config.py",
+    "merklekv_tpu_torch.version": "merklekv_tpu/version.py",
+    "merklekv_tpu_torch.native_bindings": "merklekv_tpu/native_bindings.py",
+    "merklekv_tpu_torch.client": "merklekv_tpu/client.py",
+    "merklekv_tpu_torch.broker": "merklekv_tpu/broker.py",
+    "merklekv_tpu_torch.cluster.applier": "merklekv_tpu/cluster/applier.py",
+    "merklekv_tpu_torch.cluster.transport": "merklekv_tpu/cluster/transport.py",
+    "merklekv_tpu_torch.cluster.transport_mqtt": "merklekv_tpu/cluster/transport_mqtt.py",
+    "merklekv_tpu_torch.cluster.replicator": "merklekv_tpu/cluster/replicator.py",
+    "merklekv_tpu_torch.cluster.overload": "merklekv_tpu/cluster/overload.py",
+    "merklekv_tpu_torch.cluster.health": "merklekv_tpu/cluster/health.py",
+    "merklekv_tpu_torch.cluster.sync": "merklekv_tpu/cluster/sync.py",
+    "merklekv_tpu_torch.cluster.node": "merklekv_tpu/cluster/node.py",
+    "merklekv_tpu_torch.obs.trace": "merklekv_tpu/obs/trace.py",
+    "merklekv_tpu_torch.obs.tracewire": "merklekv_tpu/obs/tracewire.py",
+    "merklekv_tpu_torch.obs.lag": "merklekv_tpu/obs/lag.py",
+    "merklekv_tpu_torch.obs.exporter": "merklekv_tpu/obs/exporter.py",
+    "merklekv_tpu_torch.obs.catalog": "merklekv_tpu/obs/catalog.py",
 }
 
 
@@ -104,9 +126,16 @@ def test_no_source_names_jax_or_the_jax_package(path):
 
 
 @pytest.fixture
-def no_cuda():
+def no_cuda(monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("this machine has CUDA; the no-GPU behaviour is not observable")
+    monkeypatch.delenv("MERKLEKV_TORCH_DEVICE", raising=False)
+
+
+def _node_config() -> Config:
+    cfg = Config()
+    cfg.port = 0
+    return cfg
 
 
 _ENTRY_POINTS = {
@@ -122,6 +151,13 @@ _ENTRY_POINTS = {
     "diff_keys_pair": lambda: t_diff.diff_keys_pair({b"a": b"x" * 32}, {}),
     "DeviceTreeMirror": lambda: DeviceTreeMirror(object()),
     "build_state_for_rung(1)": lambda: build_state_for_rung(1, [(b"k", b"v")]),
+    "node start": lambda: start(_node_config()),
+    "SyncManager leaf pass": lambda: t_sync.SyncManager(object(), device="tpu")._hash_leaves(
+        [(b"k", b"v")], True),
+    "SyncManager pairwise diff": lambda: t_sync.SyncManager(object(), device="tpu")._diff(
+        {b"a": b"x" * 32}, {}, True),
+    "divergence_masks_engine": lambda: t_diff.divergence_masks_engine(
+        np.zeros((2, 1, 8), np.uint32), np.ones((2, 1), bool)),
 }
 
 
@@ -162,3 +198,25 @@ def test_source_tag_covers_sources_and_flags():
     assert len(tag) == 16 and tag == sha256_cuda._source_tag()
     assert sha256_cuda.BUILD_DIR == ROOT / "build" / "torch_kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_native_build_writes_only_under_build_native(tmp_path, monkeypatch):
+    """The port's C++ copy builds into ``build/native/`` at the repository
+    root (which ``.gitignore`` covers), named by a hash of its sources and
+    flags, and leaves its source directory as it found it."""
+    assert Path(native_bindings.BUILD_DIR) == ROOT / "build" / "native"
+    src = Path(native_bindings._NATIVE_DIR)
+    assert src == PKG / "native"
+    before = sorted(p.name for p in src.iterdir())
+    assert before and all(name.endswith((".cc", ".h")) for name in before)
+    lib = Path(native_bindings.ensure_built())
+    assert lib.parent == ROOT / "build" / "native" and lib.name.endswith(".so")
+    assert sorted(p.name for p in src.iterdir()) == before
+    # The name follows the sources: an edited copy gets another one.
+    tag = native_bindings._source_tag()
+    assert tag in lib.name and tag == native_bindings._source_tag()
+    copy = tmp_path / "native"
+    shutil.copytree(src, copy)
+    (copy / "merkle.cc").write_text((copy / "merkle.cc").read_text() + "\n// edited\n")
+    monkeypatch.setattr(native_bindings, "_NATIVE_DIR", str(copy))
+    assert native_bindings._source_tag() != tag
