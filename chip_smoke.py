@@ -57,8 +57,9 @@ Phases, one line each (an uncaught failure exits nonzero):
               survives and no root query blocks past 300 ms. Prints the
               re-warm times and the longest gap between served roots.
 7. kernels line — printed after phase 8; per kernel: launches on the main
-              path (phases 3 to 6 and 8, each counted from 0) and, as
-              ``launches_node``, those of phase 8 alone; its device time (torch.profiler kernel
+              path (phases 3 to 6, 8 and 9, each counted from 0) and, as
+              ``launches_node`` and ``launches_sharded``, those of phases 8
+              and 9 alone; its device time (torch.profiler kernel
               time), the plain version's time, and its bound; for the two
               serving kernels the ``[times]`` line also gives a modelled
               latency floor (not in the kernels line: it assumes a clock and
@@ -91,6 +92,33 @@ Phases, one line each (an uncaught failure exits nonzero):
               mirror and zero fallbacks, degradations, guard, pump and warm
               errors and re-warms. Prints load, warm, writes/s, largest
               ``pump_lag_ms``, SYNC and multi-sync wall times.
+9. sharded  — run right after phase 3, on its data: ``merklekv_tpu_torch/
+              parallel/`` over D = 4 shards on ``[cuda:0] * 4`` (one card),
+              or over the first 4 (or 2) distinct cards when there are two
+              or more; prints which. First ``path_rehash`` and
+              ``promotion_chain`` at the shards' shapes against their plain
+              versions. (a) ``sharded_anti_entropy_step`` on the largest
+              prefix of phase 3's keys that splits into D power-of-two
+              shards (8,388,608 of 10M): root, masks and counts == the
+              single-device step on the same prefix, masks == injected;
+              ``sharded_divergence_2d`` over a 2 x 2 mesh on all 10M keys
+              == injected; median of 5 synchronised wall times beside the
+              single-device step's. (b) ``ShardedDeviceMerkleState`` over
+              1M keys: 50 value batches of 4096 (each exactly one
+              ``path_rehash`` per shard that received keys plus the top
+              reduce's ``node_level`` launches; a root read two
+              ``promotion_chain``), every root == a single-device state fed
+              the same batches; a structural batch of 4096 inserts and 4096
+              deletes; then ``to_numpy_levels``, TREELEVEL slices (each
+              level's last node) == the single-device state, root == the
+              CPU golden tree; writes/s. (c) ``divergence_masks_engine`` at
+              100,000 keys x 3 replicas through its sharded branch == the
+              single-device masks. (d) the mirror with ``sharding="4"`` on
+              the same devices: warms on rung D, 50 staged batches, then
+              ``fail:shard{D}_scatter`` steps it down to rung D/2 on the card
+              and ``heal()`` climbs back to D, roots golden throughout; the
+              guard, pump, warm, re-warm, degrade and heal counters are
+              exactly those of the one injected failure. Prints its seconds.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, the script exits nonzero and prints no result.
@@ -132,6 +160,11 @@ NODE_MSET = 500
 NODE_PIPELINE = 64
 NODE_SYNC_CYCLES = 8
 MULTI_KEYS = 100_000
+SHARDS = 4
+SHARDED_BATCHES = 50
+# The sharded drill's heal probe waits this long after the step-down, so it
+# never runs while the fault is still installed.
+SHARDED_HEAL_S = 15.0
 
 # Bound arithmetic (H100 SXM, NVIDIA data sheet): 3.35 TB/s HBM. Shifts and
 # logic run only on the 64 INT32 lanes of an SM: 132 SMs x 64 x 1.98 GHz
@@ -516,7 +549,8 @@ def phase_rebuild(dev, seed: int, n_keys: int = REBUILD_KEYS, n_rep: int = REPLI
         f"{med * 1e3:.3f} ms of {reps} (min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
         f"{n_keys / med:.0f} keys/s")
     return {"launches": launches, "median_s": med, "keys_per_s": n_keys / med,
-            "blocks": blocks, "nblocks": nblocks,
+            "blocks": blocks, "nblocks": nblocks, "digests": digests, "present": present,
+            "expected": expected,
             "forward": lambda: anti_entropy_forward(blocks, nblocks, digests, present, device=dev)}
 
 
@@ -978,6 +1012,353 @@ def phase_fault_drill(dev, seed: int, n_keys: int = DRILL_KEYS) -> dict:
         f"launches {launches}")
     return {"launches": launches, "rewarm_ms": rewarm_ms, "max_gap_ms": fail_gap * 1e3,
             "hang_call_ms": hang_call * 1e3}
+
+
+# ------------------------------------------------------- phase 9: sharded
+
+def shard_devices(dev) -> tuple[list, bool]:
+    """The sharded phase's devices: the first 4 (or 2) distinct cards when
+    the machine has two or more, else ``[dev] * 4`` — every shard runs for
+    real, only the copies between distinct cards are missing."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if count >= 2:
+        d = 4 if count >= 4 else 2
+        return [torch.device("cuda", i) for i in range(d)], True
+    return [dev] * SHARDS, False
+
+
+def sync_all(devs) -> None:
+    import torch
+
+    for d in set(devs):
+        torch.cuda.synchronize(d)
+
+
+class Launches:
+    """Launch counts of the sharded path only: ``with acc:`` zeroes the
+    counters before its block and adds what the block launched; the
+    single-device references in between are left out."""
+
+    def __init__(self) -> None:
+        from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES
+
+        self.total = dict.fromkeys(LAUNCHES, 0)
+        self.last: dict = {}
+
+    def __enter__(self):
+        from merklekv_tpu_torch.ops.sha256_cuda import reset_launch_counts
+
+        reset_launch_counts()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES
+
+        self.last = dict(LAUNCHES)
+        for k, v in self.last.items():
+            self.total[k] += v
+
+
+def phase_sharded(dev, seed: int, reb: dict, errs: dict, n_tree: int = TREE_KEYS,
+                  batch: int = BATCH, batches: int = SHARDED_BATCHES,
+                  multi_keys: int = MULTI_KEYS) -> dict:
+    """The sharded tree and diff (``merklekv_tpu_torch/parallel/``) over
+    ``shard_devices``: (a) rebuild + diff on phase 3's data, (b) the sharded
+    serving tree at 1M keys against the single-device state, (c) the diff
+    engine's sharded branch at the sync_multi shape, (d) the mirror on the
+    sharded rung, stepped down by a ``shard{D}_scatter`` fault and healed."""
+    import torch
+
+    from merklekv_tpu_torch.cluster.mirror import DeviceTreeMirror
+    from merklekv_tpu_torch.cluster.retry import RetryPolicy
+    from merklekv_tpu_torch.device.ladder import DeviceBackendLadder
+    from merklekv_tpu_torch.merkle import diff as tdiff
+    from merklekv_tpu_torch.merkle.cpu import ref_level_sizes
+    from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
+    from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState, _reduce_levels
+    from merklekv_tpu_torch.merkle.torch_engine import anti_entropy_forward
+    from merklekv_tpu_torch.ops import merkle_paths as mp
+    from merklekv_tpu_torch.parallel import (
+        ShardedDeviceMerkleState,
+        make_mesh,
+        sharded_anti_entropy_step,
+        sharded_divergence_2d,
+    )
+    from merklekv_tpu_torch.parallel import sharded_merkle
+    from merklekv_tpu_torch.testing.device_faults import DeviceFaultInjector
+
+    t_phase = time.perf_counter()
+    devs, distinct = shard_devices(dev)
+    d = len(devs)
+    where = (f"{d} shards on {d} distinct cards" if distinct
+             else f"{d} shards on one card")
+    log(f"[sharded] {where}: {[str(x) for x in devs]}")
+    rng = np.random.default_rng(seed + 9)
+    acc = Launches()
+
+    # Kernels at the sharded path's own shapes: one shard's subtree of a
+    # 1M-key tree (2^20 / D leaves, a batch's share of positions) and the
+    # top tree's chain over D shard roots.
+    lsh = (1 << (n_tree - 1).bit_length()) // d
+    base = _reduce_levels(rand_words(rng, (lsh, 8), dev))
+    pos = np.sort(rng.choice(lsh, size=batch // d, replace=False))
+    blocks = rand_words(rng, (len(pos), 1, 16), dev)
+    nblocks = torch.ones(len(pos), dtype=torch.int32, device=dev)
+    got, want = [lv.clone() for lv in base], [lv.clone() for lv in base]
+    mp.path_rehash_cuda(got, torch.zeros(lsh - 1, dtype=torch.int32, device=dev), blocks,
+                        nblocks, pos)
+    mp.path_rehash(want, blocks, nblocks, pos)
+    err = max(u32_max_abs_err(g, w) for g, w in zip(got, want))
+    top = _reduce_levels(rand_words(rng, (d, 8), dev))
+    for n in range(1, d + 1):
+        err_c = u32_max_abs_err(mp.promotion_chain_cuda(top, n), mp.promotion_chain(top, n))
+        errs["promotion_chain"] = max(errs["promotion_chain"], err_c)
+        if err_c:
+            raise AssertionError(f"promotion_chain differs from plain on the top tree at n={n}")
+    errs["path_rehash"] = max(errs["path_rehash"], err)
+    if err:
+        raise AssertionError(f"path_rehash differs from plain on a shard's subtree: {err}")
+    del base, got, want
+    log(f"[sharded] kernels at the shards' shapes: path_rehash on a 2^{lsh.bit_length() - 1}"
+        f"-leaf shard at {len(pos)} positions and promotion_chain on a {d}-root top tree "
+        f"(n = 1..{d}) bit-exact vs plain")
+
+    # (a) rebuild + diff on phase 3's data. The step needs N = D * 2^k: it
+    # runs on the largest such prefix, against the single-device step on
+    # the same prefix; the 2-D diff runs on all keys.
+    n_keys = reb["blocks"].shape[0]
+    n_sh = d << ((n_keys // d).bit_length() - 1)
+    args = (reb["blocks"][:n_sh], reb["nblocks"][:n_sh], reb["digests"][:, :n_sh],
+            reb["present"][:, :n_sh])
+    mesh = make_mesh({"key": d}, devices=devs)
+    with acc:
+        root_s, masks_s, counts_s = sharded_anti_entropy_step(mesh, *args)
+        sync_all(devs)
+    if acc.last["leaf"] != d or acc.last["node_pairs"]:
+        raise AssertionError(f"the sharded step did not hash per shard: {acc.last}")
+    root_1, masks_1, counts_1 = anti_entropy_forward(*args, device=dev)
+    if not (torch.equal(root_s.to(dev), root_1) and torch.equal(masks_s.to(dev), masks_1)
+            and torch.equal(counts_s.to(dev), counts_1)):
+        raise AssertionError("sharded anti-entropy step differs from the single-device step")
+    if not torch.equal(masks_1, reb["expected"][:, :n_sh]):
+        raise AssertionError("sharded masks differ from the injected divergence")
+    mesh2 = make_mesh({"replica": 2, "key": 2}, devices=(devs * 4)[:4])
+    with acc:
+        masks_2d, counts_2d = sharded_divergence_2d(mesh2, reb["digests"], reb["present"])
+        sync_all(devs)
+    want_counts = reb["expected"].sum(dim=1, dtype=torch.int32)
+    if not (torch.equal(masks_2d.to(dev), reb["expected"])
+            and torch.equal(counts_2d.to(dev), want_counts)):
+        raise AssertionError("sharded_divergence_2d differs from the injected divergence")
+
+    def timed(fn, sync_devs, reps=5):
+        out = []
+        for _ in range(reps):
+            sync_all(sync_devs)
+            t = time.perf_counter()
+            fn()
+            sync_all(sync_devs)
+            out.append(time.perf_counter() - t)
+        return statistics.median(out)
+
+    step_s = timed(lambda: sharded_anti_entropy_step(mesh, *args), devs)
+    single_s = timed(lambda: anti_entropy_forward(*args, device=dev), [dev])
+    step2_s = timed(lambda: sharded_anti_entropy_step(mesh, *args), devs)
+    log(f"[sharded] (a) anti-entropy step {n_sh} keys x {args[2].shape[0]} replicas ({where}): "
+        f"root, masks and counts == the single-device step, masks == injected; "
+        f"sharded_divergence_2d over a 2 x 2 mesh on all {n_keys} keys == injected, counts "
+        f"{counts_2d.tolist()}; median of 5 wall times, every device synchronised: sharded "
+        f"{step_s * 1e3:.3f} ms then {step2_s * 1e3:.3f} ms, single device "
+        f"{single_s * 1e3:.3f} ms")
+    del masks_s, masks_1, masks_2d
+
+    # (b) the sharded serving tree at 1M keys, against the single-device
+    # state fed the same batches, and the CPU golden tree at the end.
+    items = [(b"inc:%09d" % i, b"v%d" % i) for i in range(n_tree)]
+    with acc:
+        t = time.perf_counter()
+        st = ShardedDeviceMerkleState.from_items(items, shards=d, devices=devs)
+        sync_all(devs)
+        build_s = time.perf_counter() - t
+    one = DeviceMerkleState.from_items(items, device=dev)
+    if st.root_hex() != one.root_hex():
+        raise AssertionError("sharded build root differs from the single-device root")
+    final = dict(items)
+    l = st._capacity // d
+    top_reduce = (d - 1).bit_length()
+    spent = 0.0
+    for b in range(batches):
+        idx = rng.integers(0, n_tree, size=batch)
+        changes = [(b"inc:%09d" % i, b"s%d-%d" % (b, i)) for i in idx]
+        owners = len(set((idx // l).tolist()))
+        with acc:
+            t = time.perf_counter()
+            st.apply(changes)
+            st.flush_pending()
+            spent += time.perf_counter() - t
+        want = {**dict.fromkeys(acc.last, 0), "path_rehash": owners, "node_level": top_reduce}
+        if acc.last != want:
+            raise AssertionError(f"value batch {b} launched {acc.last}, expected {want}")
+        with acc:
+            t = time.perf_counter()
+            root = st.root_hex()
+            spent += time.perf_counter() - t
+        if acc.last["promotion_chain"] != (2 if d > 1 else 1):
+            raise AssertionError(f"a root read launched {acc.last}")
+        one.apply(changes)
+        final.update(changes)
+        if root != one.root_hex():
+            raise AssertionError(f"sharded root differs from the single-device root after batch {b}")
+    rate = batches * batch / spent
+    # One structural batch: inserts and deletes spread over every shard.
+    ins = [(b"inc:%09d-x" % i, b"new%d" % i) for i in rng.integers(0, n_tree, size=batch)]
+    dels = [(items[i][0], None) for i in rng.choice(n_tree, size=batch, replace=False)]
+    with acc:
+        st.apply(ins + dels)
+        st.flush_pending()
+    one.apply(ins + dels)
+    final.update(ins)
+    for k, _ in dels:
+        final.pop(k)
+    if st.root_hex() != one.root_hex():
+        raise AssertionError("sharded root differs from the single-device root after the "
+                             "structural batch")
+    for a, w in zip(st.to_numpy_levels(), one.to_numpy_levels(), strict=True):
+        if not np.array_equal(a, w):
+            raise AssertionError("sharded to_numpy_levels differs from the single-device levels")
+    slices = 0
+    for level, m in enumerate(ref_level_sizes(len(final))):
+        mid = int(rng.integers(0, m))
+        for lo, hi in ((0, 4), (mid, mid + 4), (m - 3, m)):
+            if st.level_nodes(level, lo, hi) != one.level_nodes(level, lo, hi):
+                raise AssertionError(f"sharded level {level} [{lo}, {hi}) differs")
+            slices += 1
+    if st.root_hex() != CpuMerkleState.from_items(final.items()).root_hex():
+        raise AssertionError("sharded root differs from the CPU golden tree")
+    log(f"[sharded] (b) serving tree {n_tree} keys ({where}): build {build_s:.3f} s; "
+        f"{batches} value batches of {batch}: each one path_rehash per shard that received "
+        f"keys + {top_reduce} node_level (the top reduce), no other launch; each root read "
+        f"{2 if d > 1 else 1} promotion_chain; {rate:.0f} writes/s (sharded apply + flush + "
+        f"root read only); every root == the single-device state; after a structural batch "
+        f"of {batch} inserts + {batch} deletes: to_numpy_levels and {slices} TREELEVEL slices "
+        f"(each level's last node included) == the single-device state, root == the CPU "
+        f"golden tree")
+    del st, one
+
+    # (c) the diff engine's sharded branch at the sync_multi shape.
+    base_d = rng.integers(0, 2**32, size=(1, multi_keys, 8), dtype=np.uint64).astype(np.uint32)
+    dig = np.repeat(base_d, 3, axis=0)
+    pres = np.ones((3, multi_keys), bool)
+    dig[1, rng.choice(multi_keys, 100, replace=False), 3] ^= 1
+    pres[2, rng.choice(multi_keys, 100, replace=False)] = False
+    routed = []
+    real = sharded_merkle.sharded_divergence
+    sharded_merkle.sharded_divergence = lambda *a, **kw: routed.append(1) or real(*a, **kw)
+    try:
+        with acc:
+            got = tdiff.divergence_masks_engine(dig, pres, device=dev, devices=devs)
+    finally:
+        sharded_merkle.sharded_divergence = real
+    single = tdiff.divergence_masks_engine(dig, pres, device=dev, devices=[dev])
+    if routed != [1] or not torch.equal(got, single):
+        raise AssertionError(f"the diff engine's sharded branch ({len(routed)} calls) differs "
+                             "from the single-device masks")
+    if not np.array_equal(got.cpu().numpy(), tdiff.divergence_masks_np(dig, pres)):
+        raise AssertionError("the diff engine's masks differ from the host twin")
+    log(f"[sharded] (c) divergence_masks_engine {multi_keys} keys x 3 replicas went through "
+        f"the sharded branch ({where}); masks == single device == host twin, per replica "
+        f"{got.sum(dim=1).tolist()}")
+
+    # (d) the mirror on rung D, a shard{D}_scatter fault, heal.
+    eng = DictEngine(items)
+    golden = CpuMerkleState.from_items(items)
+    base_c = _counters()
+    heal = RetryPolicy(first_delay=SHARDED_HEAL_S, max_delay=SHARDED_HEAL_S, jitter=0.0)
+    m = DeviceTreeMirror(eng, device=dev, devices=devs, sharding=str(d), scrub_interval_s=0.0,
+                         ladder=DeviceBackendLadder(d, degrade_after=1, heal_policy=heal,
+                                                    cpu_rung=False))
+    inj = None
+    checks = 0
+
+    def stage(tag: str) -> list:
+        idx = rng.integers(0, n_tree, size=batch)
+        changes = [(b"inc:%09d" % i, b"%s-%d" % (tag.encode(), i)) for i in idx]
+        eng.write(changes)
+        m.on_events(_events(changes), eng.version())
+        return changes
+
+    def check(what: str, rung: int) -> None:
+        nonlocal checks
+        if m.backend_level() != rung:
+            raise AssertionError(f"the mirror is on rung {m.backend_level()}, not {rung} ({what})")
+        _check_mirror(m, eng, golden, rng, what)
+        checks += 1
+
+    try:
+        with acc:
+            t = time.perf_counter()
+            if m._resolve_shards() != d:
+                raise AssertionError(f"sharding={d} resolved to {m._resolve_shards()}")
+            m.start_warming()
+            _wait_warm(m, base_c, 300)
+            warm_s = time.perf_counter() - t
+            check("warm", d)
+            t = time.perf_counter()
+            staged = [stage(f"m{b}") for b in range(batches)]
+            wm = eng.version()
+            if not _wait(lambda: (m.published_root_stamped() or (None, -1))[1] >= wm, 120):
+                raise AssertionError("the pump never published the last batch")
+            fed_s = time.perf_counter() - t
+            for changes in staged:
+                golden.apply(changes)
+            check(f"{batches} staged batches", d)
+
+            inj = DeviceFaultInjector(match=f"shard{d}_scatter", mode="fail").install()
+            t = time.perf_counter()
+            golden.apply(stage("fault"))
+            if not _wait(lambda: m.ready() and m.backend_level() == d // 2, 120, 0.002):
+                raise AssertionError(f"the mirror did not step down to rung {d // 2}")
+            down_s = time.perf_counter() - t
+            check("step-down", d // 2)
+            golden.apply(stage("down"))
+            check("a batch on the lower rung", d // 2)
+            failures = inj.failures
+            inj.heal()
+            t = time.perf_counter()
+            if not _wait(lambda: m.ready() and m.backend_level() == d, 120, 0.005):
+                raise AssertionError(f"the mirror did not climb back to rung {d}")
+            climb_s = time.perf_counter() - t
+            inj.uninstall()
+            inj = None
+            golden.apply(stage("healed"))
+            check("after the climb", d)
+    finally:
+        if inj is not None:
+            inj.uninstall()
+        m.close()
+    delta = {k: v - base_c.get(k, 0) for k, v in _counters().items()}
+    got_c = {k: delta.get(k, 0) for k in (
+        "device.guard_errors", "device.guard_retries", "device.pump_errors",
+        "device.warm_errors", "device.rewarms", "device.degraded_total",
+        "device.healed_total", "device.guard_timeouts")}
+    want_c = {"device.guard_errors": 1, "device.guard_retries": 1, "device.pump_errors": 1,
+              "device.warm_errors": 0, "device.rewarms": 1, "device.degraded_total": 1,
+              "device.healed_total": 1, "device.guard_timeouts": 0}
+    if got_c != want_c or failures != 2:
+        raise AssertionError(f"drill counters {got_c} (injected failures {failures}) != {want_c}")
+    seconds = time.perf_counter() - t_phase
+    log(f"[sharded] (d) mirror {n_tree} keys, sharding={d} ({where}): warm on rung {d} "
+        f"{warm_s:.3f} s; {batches} staged batches of {batch} published in {fed_s:.3f} s "
+        f"({batches * batch / fed_s:.0f} writes/s); fail:shard{d}_scatter: one failed drain "
+        f"({failures} injected failures, the guard's retry included) stepped down to rung "
+        f"{d // 2} on the card in {down_s:.3f} s; heal: back on rung {d} in {climb_s:.3f} s "
+        f"(heal probe after {SHARDED_HEAL_S:g} s); {checks} checks (stamped root, TREELEVEL "
+        f"slices, staleness 0) == CpuMerkleState; counters {got_c}")
+    log(f"[sharded] phase {seconds:.1f} s; launches {acc.total}")
+    return {"launches": acc.total, "seconds": seconds, "step_ms": step_s * 1e3,
+            "single_ms": single_s * 1e3, "writes_per_s": rate, "where": where}
 
 
 # ------------------------------------------------------------ phase 8: node
@@ -1517,12 +1898,16 @@ def main() -> int:
     errs = phase_kernels(dev, rng)["max_abs_err"]
     errs.update(phase_paths(dev, rng)["max_abs_err"])
     reb = phase_rebuild(dev, args.seed)
+    shd = phase_sharded(dev, args.seed, reb, errs)
+    for key in ("digests", "present", "expected"):
+        del reb[key]
     srv = phase_serving(dev, args.seed)
     mir = phase_mirror(dev, args.seed)
     drill = phase_fault_drill(dev, args.seed)
     entry = phase_node_entry(args.seed)
     node = phase_node_sync(args.seed)
-    phases = {"rebuild": reb, "serving": srv, "mirror": mir, "drill": drill, "node": node}
+    phases = {"rebuild": reb, "serving": srv, "mirror": mir, "drill": drill, "node": node,
+              "sharded": shd}
     launches = {k: sum(ph["launches"][k] for ph in phases.values()) for k in srv["launches"]}
     if min(launches[name] for name in MAIN_PATH_KERNELS) < 1:
         raise AssertionError(f"a kernel was never launched on the main path: {launches}")
@@ -1530,6 +1915,7 @@ def main() -> int:
     kernels = phase_kernel_times(dev, rng, reb["blocks"], reb["nblocks"], errs, launches)
     for k in kernels:
         k["launches_node"] = node["launches"][k["name"]]
+        k["launches_sharded"] = shd["launches"][k["name"]]
     device_profile("rebuild+diff 10M x 8", reb.pop("forward"), 3)
     batch = srv.pop("batch")
     prof = device_profile("serving batch of 4096 + root read", batch, 5)
@@ -1544,7 +1930,9 @@ def main() -> int:
         f"node 1M: load over TCP {entry['load_s']:.3f} s, warm {entry['warm_s']:.3f} s (in-process "
         f"{node['warm_s']:.3f} s), {node['writes_per_s']:.0f} writes/s with a forced HASH per "
         f"batch, largest pump lag {node['max_lag_ms']:g} ms, bisect SYNC {node['sync_s']:.3f} s, "
-        f"3-node sync_multi {node['multi_s']:.3f} s; card {card}")
+        f"3-node sync_multi {node['multi_s']:.3f} s; sharded ({shd['where']}): step "
+        f"{shd['step_ms']:.3f} ms vs single device {shd['single_ms']:.3f} ms, serving "
+        f"{shd['writes_per_s']:.0f} writes/s, phase {shd['seconds']:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

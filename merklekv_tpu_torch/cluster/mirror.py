@@ -11,14 +11,16 @@ What differs from the JAX mirror, and only this:
   by ``utils/torchenv.resolve_device`` — without a GPU, ``device=None``
   raises there, before any ladder exists, so a missing card can never turn
   into a quiet CPU-rung mirror.
-- **sharding**: ``"off"`` (the node config's default) serves from one
-  device. ``"auto"`` or a shard count raises until the multi-GPU state
-  exists (ROADMAP Queue A item 3), at construction.
+- **devices**: ``sharding`` (``auto|off|N``) resolves against the mirror's
+  ``devices`` list — every card of the host by default, ``[cpu]`` for
+  ``device="cpu"``; tests and the smoke script pass an explicit list, which
+  may repeat a device (``["cpu"] * 8``, ``[cuda:0] * 4``).
 - **rungs**: ``_build_state`` and ``_probe_rung`` build through the port's
-  ``device/ladder.py::build_state_for_rung`` on ``device``: rung 1 is the
-  torch ``DeviceMerkleState``, rung 0 the port's ``CpuMerkleState``, which
-  is also the heal probe's golden root. Only a mirror built with
-  ``device="cpu"`` has rung 0. The ladder of a mirror on the card ends at
+  ``device/ladder.py::build_state_for_rung``: rungs >= 2 the port's
+  ``ShardedDeviceMerkleState`` over the first N of ``devices``, rung 1 the
+  torch ``DeviceMerkleState`` on ``device``, rung 0 the port's
+  ``CpuMerkleState``, which is also the heal probe's golden root. Only a
+  mirror built with ``device="cpu"`` has rung 0. The ladder of a mirror on the card ends at
   rung 1, so its work never moves to the host: a build that fails there
   raises, and the failure is counted (``device.warm_errors``) and recorded
   (a ``device_warm_failed`` flight event).
@@ -112,18 +114,6 @@ class MirrorEngine(Protocol):
         """The key's current value, or None when it is absent."""
 
 
-def _resolve_shards(mode: str) -> int:
-    """``sharding`` -> top rung width: 0 (one device) for ``off`` and its
-    synonyms, 1 for an explicit single shard; anything sharded raises."""
-    if mode in ("off", "false", "0", "none", ""):
-        return 0
-    if mode == "1":
-        return 1
-    raise NotImplementedError(
-        f"sharding={mode!r} needs the sharded multi-GPU tree, which the torch "
-        "port does not have yet (ROADMAP Queue A item 3); use sharding='off'"
-    )
-
 # One tree_staleness flight flag per this many seconds (same one-flag-per-
 # window discipline as the blackbox slow-command bursts).
 _STALENESS_FLAG_WINDOW_S = 10.0
@@ -148,23 +138,19 @@ class DeviceTreeMirror:
         degrade_after: int = 2,
         ladder: Optional[DeviceBackendLadder] = None,
         device=None,
+        devices=None,
     ) -> None:
         self._engine = engine
         # Serving-tree backend selection ([device] sharding = auto|off|N):
-        # "off" keeps the single-device DeviceMerkleState; the sharded
-        # widths are refused here, before anything is built. ``sharded`` is
-        # the deprecated boolean alias (== "auto").
+        # "off" keeps the single-device DeviceMerkleState; anything else
+        # resolves at the first build (``_resolve_shards``) against the
+        # device list. ``sharded`` is the deprecated boolean alias (== "auto").
         mode = str(sharding).strip().lower()
         self._sharding_mode = "auto" if (sharded and mode == "off") else mode
-        self._top_shards = _resolve_shards(self._sharding_mode)
         # The device rung 1 lives on; None means CUDA and raises without a
         # GPU, here, never later inside a warm build that would step down.
         self._device = resolve_device(device)
-        if ladder is not None and ladder.current() >= 2:
-            raise NotImplementedError(
-                "the injected ladder starts on a sharded rung, which the torch "
-                "port does not have yet (ROADMAP Queue A item 3)"
-            )
+        self._devices = devices
         if ladder is not None and self._device.type != "cpu" and ladder.bottom() == 0:
             raise ValueError(
                 "a mirror on the card never steps down to the CPU rung: "
@@ -797,7 +783,8 @@ class DeviceTreeMirror:
             from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
 
             golden = CpuMerkleState.from_items(probe_items).root_hex()
-            st = build_state_for_rung(target, probe_items, device=self._device)
+            st = build_state_for_rung(target, probe_items, device=self._device,
+                                      devices=self._shard_devices())
             return st.root_hex() == golden
         except Exception:
             return False
@@ -1143,12 +1130,25 @@ class DeviceTreeMirror:
         return self._state
 
     # -- internals -----------------------------------------------------------
+    def _shard_devices(self) -> list:
+        from merklekv_tpu_torch.parallel.mesh import shard_devices
+
+        return shard_devices(self._device, self._devices)
+
+    def _resolve_shards(self) -> int:
+        """[device] sharding -> top rung width (0 = single-device backend),
+        resolved at the first build against the mirror's device list: on a
+        one-device list ``auto`` is the single-device tree."""
+        from merklekv_tpu_torch.parallel.sharded_state import resolve_shard_count
+
+        return resolve_shard_count(self._sharding_mode, len(self._shard_devices()))
+
     def _ensure_ladder(self) -> DeviceBackendLadder:
         """The degradation ladder, built on first use (tests may inject a
         pre-built one). On the card it ends at rung 1."""
         if self._ladder is None:
             self._ladder = DeviceBackendLadder(
-                self._top_shards,
+                self._resolve_shards(),
                 degrade_after=self._degrade_after,
                 cpu_rung=self._device.type == "cpu",
             )
@@ -1162,18 +1162,18 @@ class DeviceTreeMirror:
         drain threshold would just repeat the cliff) and the build retries
         one rung lower. A failure on the bottom rung raises: on a CPU
         mirror that is the infallible CPU golden rung (a failure there is
-        a bug), on the card rung 1. A rung the port lacks raises instead of
-        stepping down. A good build does not clear the ladder's count of
-        drain failures: a re-warm exercises the build, not the scatter
-        that failed."""
+        a bug), on the card rung 1. A good build does not clear the
+        ladder's count of drain failures: a re-warm exercises the build,
+        not the scatter that failed."""
         items = list(items)
         ladder = self._ensure_ladder()
         while True:
             rung = ladder.current()
             try:
-                return build_state_for_rung(rung, items, device=self._device)
+                return build_state_for_rung(rung, items, device=self._device,
+                                            devices=self._shard_devices())
             except BaseException as e:
-                if isinstance(e, (KeyboardInterrupt, SystemExit, NotImplementedError)):
+                if isinstance(e, (KeyboardInterrupt, SystemExit)):
                     raise
                 if ladder.at_bottom():
                     raise

@@ -14,9 +14,12 @@ port's modules, except:
   reference's contract);
 - ``PROFILE <secs>`` captures a ``torch.profiler`` trace (CUDA activity on
   the card) into the same directory scheme;
+- ``[device] sharding = auto|N`` (and the ``sharded_mirror`` alias) shards
+  the mirror's tree over the host's cards (``parallel/sharded_state.py``);
+  on a one-card host ``auto`` serves from one device;
 - features the port does not have yet (durable storage, partitions and
-  rebalancing, bootstrap, the sharded tree, multi-host) raise
-  ``NotImplementedError`` naming their ROADMAP item (``unported.py``).
+  rebalancing, bootstrap, multi-host) raise ``NotImplementedError`` naming
+  their ROADMAP item (``unported.py``).
 
 Owns the SYNC / REPLICATE cluster-command callback (the native server
 delegates those verbs here), the Replicator lifecycle (REPLICATE

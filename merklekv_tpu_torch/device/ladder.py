@@ -13,13 +13,13 @@ never the wire contract. Rung values double as the ``device.backend_level``
 gauge code: N>=2 sharded width, 1 single device, 0 CPU golden (the mirror
 reports -1 while nothing is built).
 
-The port serves rungs 1 (one device, ``merkle/incremental.py``) and 0
+Rungs >= 2 are ``parallel/sharded_state.py::ShardedDeviceMerkleState``
+over the first N of the caller's devices, rung 1 is one device
+(``merkle/incremental.py``), rung 0 the CPU golden tree
 (``merkle/cpu_state.py``). A ladder built with ``cpu_rung=False`` ends at
-rung 1: a mirror on the card uses it, so its work never moves to the host,
-while a mirror built on the CPU keeps the JAX package's full ladder. The
-sharded rungs wait for the multi-GPU state (ROADMAP Queue A item 3): asking
-for one raises ``NotImplementedError`` rather than stepping down, since a
-silent step down would hide the gap.
+rung 1: a mirror on the card uses it, so its work never moves to the host
+(a sharded rung that fails steps down to N/2 ... 1, all on the card), while
+a mirror built on the CPU keeps the JAX package's full ladder.
 
 Policy:
 
@@ -62,15 +62,15 @@ def rung_sequence(top_shards: int) -> list[int]:
     return rungs
 
 
-def build_state_for_rung(rung: int, items: Iterable, device=None):
+def build_state_for_rung(rung: int, items: Iterable, device=None, devices=None):
     """State factory shared by the mirror's warm path and its heal probe:
-    1 single device (``device``, ``None`` = CUDA), 0 CPU golden. The
-    sharded rungs (>= 2) are not ported yet and raise."""
+    >= 2 sharded over the first ``rung`` of ``devices`` (default: every
+    card of the host), 1 single device (``device``, ``None`` = CUDA), 0 CPU
+    golden."""
     if rung >= 2:
-        raise NotImplementedError(
-            f"rung {rung} is a sharded multi-GPU tree, which the torch port "
-            "does not have yet (ROADMAP Queue A item 3)"
-        )
+        from merklekv_tpu_torch.parallel.sharded_state import ShardedDeviceMerkleState
+
+        return ShardedDeviceMerkleState.from_items(items, shards=rung, devices=devices)
     if rung == 1:
         from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState
 

@@ -11,15 +11,16 @@ The whole comparison is one elementwise pass over stacked replica tensors:
 These are plain torch elementwise ops, as the JAX package left them to XLA
 outside any Pallas kernel. ``divergence_masks_np`` is a copy of the JAX
 package's host twin. ``divergence_masks_engine`` is the engine boundary the
-anti-entropy manager calls: on one GPU it is ``divergence_masks`` on the
-given device. The JAX package shards it over a multi-device mesh past
-``SHARDED_DIFF_MIN_KEYS``; that branch waits for the multi-GPU work (ROADMAP
-Queue A item 3). The masks are bit-identical either way.
+anti-entropy manager calls: past ``SHARDED_DIFF_MIN_KEYS`` on a host with
+two or more devices it shards the comparison over them
+(``parallel/sharded_merkle.py::sharded_divergence``), else it is
+``divergence_masks`` on the given device. The masks are bit-identical
+either way.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,6 +37,11 @@ __all__ = [
     "diff_keys_multi",
     "diff_keys_pair",
 ]
+
+# Route the [R, N] comparison through the keyspace-sharded path only past
+# this union-keyspace size: below it the copies cost more than the
+# elementwise pass they parallelize.
+SHARDED_DIFF_MIN_KEYS = 1 << 15
 
 
 class AlignedReplicas:
@@ -105,11 +111,55 @@ def divergence_masks_np(digests: np.ndarray, present: np.ndarray) -> np.ndarray:
     return divergence_vs_ref(digests, present, digests[0:1], present[0:1])
 
 
-def divergence_masks_engine(digests, present, device=None) -> torch.Tensor:
+def _pad_keys(x, pad: int):
+    """Append ``pad`` all-zero (absent) key columns along axis 1."""
+    if isinstance(x, torch.Tensor):
+        return torch.cat([x, x.new_zeros((x.shape[0], pad, *x.shape[2:]))], dim=1)
+    x = np.asarray(x)
+    return np.concatenate([x, np.zeros((x.shape[0], pad, *x.shape[2:]), x.dtype)], axis=1)
+
+
+def divergence_masks_engine(
+    digests, present, device=None, min_keys: Optional[int] = None, devices=None
+) -> torch.Tensor:
     """The N-replica diff behind the engine boundary: ``[R, N]`` bool masks
     of ``digests`` ``[R, N, 8]`` uint32 and ``present`` ``[R, N]`` bool
-    (numpy arrays or tensors), computed on ``device`` (``None`` = CUDA)."""
+    (numpy arrays or tensors), returned on ``device`` (``None`` = CUDA).
+
+    ``devices`` is the local device list (default: every card of the host,
+    or ``[device]`` for a CPU ``device``). When it holds two or more and the
+    union keyspace reaches ``min_keys`` (default
+    :data:`SHARDED_DIFF_MIN_KEYS`; 0 forces it), the comparison is sharded
+    over the largest power-of-two subset of it: the key axis is padded with
+    all-absent columns (absent everywhere == absent on the reference ->
+    never divergent) and sliced back off. The sharded call runs under the
+    dispatch guard as ``shard{D}_diff``; on a ``DeviceDispatchError`` it
+    falls back to the single-device compare on ``device`` — never to the
+    host. Masks are bit-identical either way."""
     dev = resolve_device(device)
+    n = int(digests.shape[1])
+    lim = SHARDED_DIFF_MIN_KEYS if min_keys is None else min_keys
+    if n > 0 and n >= lim:
+        # Imported here: parallel/ imports this module.
+        from merklekv_tpu_torch.device.guard import DeviceDispatchError, get_guard
+        from merklekv_tpu_torch.parallel import sharded_merkle
+        from merklekv_tpu_torch.parallel.mesh import make_mesh, shard_devices
+        from merklekv_tpu_torch.parallel.sharded_state import resolve_shard_count
+
+        devs = shard_devices(dev, devices)
+        d = resolve_shard_count("auto", len(devs))  # 0 on a one-device list
+        if d >= 2:
+            mesh = make_mesh({"key": d}, devices=devs[:d])
+            pad = (-n) % d
+            dig, pres = (_pad_keys(digests, pad), _pad_keys(present, pad)) if pad else (digests, present)
+            try:
+                masks, _counts = get_guard().run(
+                    f"shard{d}_diff", lambda: sharded_merkle.sharded_divergence(mesh, dig, pres))
+                return masks[:, :n].to(dev)
+            except DeviceDispatchError:
+                # The sharded path is an optimization, never the contract:
+                # the single-device compare below is bit-identical.
+                pass
     return divergence_masks(as_tensor(digests, dev), as_tensor(present, dev, torch.bool))
 
 

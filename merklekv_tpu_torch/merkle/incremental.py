@@ -55,8 +55,7 @@ import torch
 
 from merklekv_tpu_torch.device.guard import DispatchHungError, get_guard
 from merklekv_tpu_torch.merkle.cpu import ref_level_sizes as _ref_level_sizes
-from merklekv_tpu_torch.merkle.packing import pack_leaves
-from merklekv_tpu_torch.merkle.torch_engine import leaf_digests
+from merklekv_tpu_torch.merkle.packing import PackedLeaves, pack_leaves
 from merklekv_tpu_torch.ops.dispatch import (
     hash_blocks,
     hash_node_level,
@@ -97,6 +96,10 @@ class DeviceMerkleState:
 
     # Auto-flush ceiling: bounds the host memory pending values can hold.
     PENDING_LIMIT = 65536
+
+    # Prefix of every guard label; the sharded subclass puts its width here
+    # (``shard4_scatter``) so a fault can target one rung of the ladder.
+    _guard_prefix = ""
 
     def __init__(self, device=None) -> None:
         self._device = resolve_device(device)
@@ -141,7 +144,7 @@ class DeviceMerkleState:
                 return fn()
 
         try:
-            return get_guard().run(label, locked)
+            return get_guard().run(self._guard_prefix + label, locked)
         except DispatchHungError:
             cancelled.set()
             raise
@@ -169,12 +172,16 @@ class DeviceMerkleState:
         ``[np.asarray(l) for l in st._levels]`` and its sorted keys — so both
         packages answer queries on the same tree, bit for bit."""
         st = cls(device=device)
+        st._load_levels(levels_np, keys)
+        return st
+
+    def _load_levels(self, levels_np: Sequence[np.ndarray], keys: Sequence[bytes]) -> None:
         keys_arr = np.array(list(keys), dtype=object)
         n = len(keys_arr)
         if n == 0:
             if len(levels_np):
                 raise ValueError("levels given for an empty keyspace")
-            return st
+            return
         c = int(levels_np[0].shape[0])
         if c & (c - 1) or c < n:
             raise ValueError(f"capacity {c} is not a power of two >= {n}")
@@ -185,10 +192,13 @@ class DeviceMerkleState:
                 raise ValueError(f"level {lvl} has shape {tuple(arr.shape)}")
         if any(keys_arr[i] >= keys_arr[i + 1] for i in range(n - 1)):
             raise ValueError("keys must be sorted and unique")
-        st._adopt_levels([as_tensor(np.asarray(arr, np.uint32), st._device)
-                          for arr in levels_np])
-        st._set_keys(keys_arr)
-        return st
+        self._adopt_levels(self._levels_from_numpy(
+            [np.asarray(arr, np.uint32) for arr in levels_np]))
+        self._set_keys(keys_arr)
+
+    def _levels_from_numpy(self, levels_np: list[np.ndarray]) -> list[torch.Tensor]:
+        """Validated global padded levels -> this state's level tensors."""
+        return [as_tensor(arr, self._device) for arr in levels_np]
 
     def to_numpy_levels(self) -> list[np.ndarray]:
         """Every padded level as numpy uint32 (staged changes flushed first);
@@ -196,7 +206,14 @@ class DeviceMerkleState:
         self._flush()
         if self._levels is None:
             return []
-        return self._run("levels", lambda: [words_np(lv) for lv in self._levels])
+        c = self._capacity
+        return self._run("levels", lambda: [
+            self._level_words(lvl, 0, c >> lvl) for lvl in range(c.bit_length())])
+
+    def _level_words(self, level: int, lo: int, hi: int) -> np.ndarray:
+        """Rows ``[lo, hi)`` of padded level ``level`` as numpy uint32 — the
+        one read of the levels every query goes through."""
+        return words_np(self._levels[level][lo:hi])
 
     def __len__(self) -> int:
         self._flush()
@@ -316,21 +333,19 @@ class DeviceMerkleState:
         m.observe("device.scatter_dispatch", time.perf_counter() - t0)
 
     # ------------------------------------------------------------ structure
+    def _capacity_for(self, n: int) -> int:
+        """Padded capacity for ``n`` live leaves (the sharded subclass keeps
+        it a multiple of its shard count)."""
+        return _next_pow2(n)
+
     def _initial_build(self, keys_arr: np.ndarray, values: list) -> None:
         n = len(keys_arr)
-        c = _next_pow2(n)
-
-        def padded_leaves() -> torch.Tensor:
-            digests = leaf_digests(list(keys_arr), values, device=self._device)
-            padded = torch.zeros((c, 8), dtype=torch.int32, device=self._device)
-            padded[:n] = digests
-            return padded
-
+        c = self._capacity_for(n)
+        packed = pack_leaves(list(keys_arr), values)
         # Full rebuilds are rare (warm-up, empty -> non-empty) and expensive:
         # one span each, with batch size and capacity.
         with span("device.rebuild", keys=n, capacity=c):
-            padded = self._run("build", padded_leaves)
-            self._adopt_levels(self._dispatch_build(padded))
+            self._adopt_levels(self._dispatch_build(packed, c))
         self._set_keys(keys_arr)
         self.full_rebuilds += 1
 
@@ -370,7 +385,7 @@ class DeviceMerkleState:
             self._initial_build(new_keys, [upserts[k] for k in new_keys])
             return
 
-        c_new = _next_pow2(n_new)
+        c_new = self._capacity_for(n_new)
         gather_padded = np.full(c_new, -1, np.int64)
         gather_padded[:n_new] = gather
 
@@ -380,14 +395,9 @@ class DeviceMerkleState:
         fresh_keys = [key for key, _ in fresh_items]
         fresh_pos = np.searchsorted(new_keys, np.array(fresh_keys, dtype=object)).astype(np.int64)
         packed = pack_leaves(fresh_keys, [v for _, v in fresh_items])
-        if k:
-            fresh = self._run("restructure", lambda: hash_blocks(
-                self._put(packed.blocks), self._put(packed.nblocks)))
-        else:
-            fresh = torch.zeros((0, 8), dtype=torch.int32, device=self._device)
 
         t0 = time.perf_counter()
-        self._adopt_levels(self._dispatch_restructure(gather_padded, fresh_pos, fresh, c_new))
+        self._adopt_levels(self._dispatch_restructure(gather_padded, fresh_pos, packed, c_new))
         self._set_keys(new_keys)
         self.structural_batches += 1
         m = get_metrics()
@@ -399,24 +409,32 @@ class DeviceMerkleState:
 
     # ------------------------------------------------- device dispatch seam
     # The host planning above is backend-agnostic; only these two hooks build
-    # levels on the device. A multi-GPU subclass overrides them.
-    def _dispatch_build(self, padded: torch.Tensor) -> list[torch.Tensor]:
-        """Capacity-padded [C, 8] leaf digests -> every padded level."""
-        return self._run("build", lambda: _reduce_levels(padded))
+    # levels on the device. The multi-GPU subclass overrides them.
+    def _dispatch_build(self, packed: PackedLeaves, c: int) -> list[torch.Tensor]:
+        """Packed leaves -> their digests in a zero-padded [c, 8] leaf level
+        -> every padded level."""
+        def go() -> list[torch.Tensor]:
+            padded = torch.zeros((c, 8), dtype=torch.int32, device=self._device)
+            padded[:packed.n] = hash_blocks(self._put(packed.blocks), self._put(packed.nblocks))
+            return _reduce_levels(padded)
+
+        return self._run("build", go)
 
     def _dispatch_restructure(
         self,
         gather_padded: np.ndarray,
         fresh_pos: np.ndarray,
-        fresh: torch.Tensor,
+        fresh: PackedLeaves,
         c_new: int,
     ) -> list[torch.Tensor]:
-        """Gather survivors into shifted slots + scatter fresh digests + full
-        re-reduction (``self._capacity`` still holds the OLD C).
+        """Gather survivors into shifted slots + scatter the digests of the
+        ``fresh`` leaves + full re-reduction (``self._capacity`` still holds
+        the OLD C).
 
         gather_padded [c_new] int64: source slot in the OLD leaf level for
         each new slot, or -1 for slots that receive a fresh digest / stay
-        zero. fresh_pos [k] + fresh [k, 8]: the changed digests."""
+        zero. fresh_pos [k]: the new slots of the k packed ``fresh`` leaves
+        (every upsert), sorted."""
         c_old = self._capacity
 
         def go() -> list[torch.Tensor]:
@@ -425,7 +443,8 @@ class DeviceMerkleState:
             base = self._levels[0][safe]
             base[gather < 0] = 0
             if len(fresh_pos):
-                base.index_put_((self._put(fresh_pos, torch.int64),), fresh)
+                base.index_put_((self._put(fresh_pos, torch.int64),),
+                                hash_blocks(self._put(fresh.blocks), self._put(fresh.nblocks)))
             return _reduce_levels(base)
 
         return self._run("restructure", go)
@@ -463,7 +482,7 @@ class DeviceMerkleState:
             return None
         return self._run(
             "levels",
-            lambda: digest_to_bytes(words_np(self._levels[0][i])),
+            lambda: digest_to_bytes(self._level_words(0, i, i + 1)[0]),
         )
 
     # ------------------------------------------- reference-level serving
@@ -499,7 +518,7 @@ class DeviceMerkleState:
             return [], n
 
         def read() -> list[tuple[int, bytes]]:
-            digs = digests_to_bytes(words_np(self._levels[level][lo:hi]))
+            digs = digests_to_bytes(self._level_words(level, lo, hi))
             rows = [(lo + i, d) for i, d in enumerate(digs)]
             if hi == m and level > 0:
                 rows[-1] = (m - 1, self._promoted_last(level))

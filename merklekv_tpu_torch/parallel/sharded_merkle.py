@@ -1,0 +1,390 @@
+"""Sharded Merkle build and diff over the devices of a mesh (counterpart of
+``merklekv_tpu/parallel/sharded_merkle.py``).
+
+Decomposition, as in the JAX package: for N = D * L leaves with L a power
+of two, the bottom log2(L) tree levels never cross a shard boundary — every
+pair merge is inside one contiguous block of L sorted leaves. So each
+device reduces its own [L, 8] leaf block to one subtree root, the D subtree
+roots are copied to the first device (the JAX ``all_gather``), and the top
+tree over D nodes is reduced there. The result is bit-identical to the
+single-device tree of N leaves, because D and L are powers of two.
+
+Divergence is parallel over keys: each device compares its [R, L] digest
+block and the per-replica counts are summed on the first device (the JAX
+``psum``).
+
+What differs from the JAX module: there is no ``shard_map`` and no program
+cache. Each function loops over the mesh axis, runs the shard's kernels on
+the shard's device and moves tensors with ``.to(device)``, which orders the
+copy after the work already queued on both devices' current streams. The
+results the JAX programs return as global sharded arrays are returned as
+tensors on the first device of the axis.
+
+The serving-tree helpers at the end keep the padded tree of capacity
+C = D * L as D lists of shard-local levels (sizes L .. 1) plus the top tree
+on the first device (sizes D .. 1); ``parallel/sharded_state.py`` drives
+them.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from merklekv_tpu_torch.merkle.cpu import ref_level_sizes
+from merklekv_tpu_torch.merkle.diff import divergence_masks, divergence_vs_ref
+from merklekv_tpu_torch.merkle.incremental import _reduce_levels
+from merklekv_tpu_torch.ops.dispatch import (
+    build_levels,
+    hash_blocks,
+    promotion_chain,
+    rehash_paths,
+)
+from merklekv_tpu_torch.parallel.mesh import Mesh
+from merklekv_tpu_torch.utils.torchenv import as_tensor
+
+__all__ = [
+    "sharded_tree_root",
+    "sharded_divergence",
+    "sharded_divergence_2d",
+    "sharded_anti_entropy_step",
+    "make_anti_entropy_step",
+    "sharded_build",
+    "sharded_scatter",
+    "sharded_restructure",
+    "sharded_promotion_chain",
+]
+
+
+def _local_root(block: torch.Tensor) -> torch.Tensor:
+    """[L, 8] -> [1, 8] subtree root (L is a power of two)."""
+    _check_local_block(block.shape[0])
+    return build_levels(block)[-1]
+
+
+def _check_local_block(l: int) -> None:
+    """Per-shard leaf count must be a positive power of two, or the local
+    subtree reduction would apply odd-promotion at a shard boundary and
+    silently diverge from the global tree."""
+    if l == 0 or (l & (l - 1)):
+        raise ValueError(
+            f"per-shard leaf count {l} must be a positive power of two"
+        )
+
+
+def _check_shardable(n: int, d: int, what: str = "leaf count") -> int:
+    """Validate n = d * L with L a positive power of two; return L."""
+    if n % d:
+        raise ValueError(f"{what} {n} not divisible by mesh axis {d}")
+    l = n // d
+    if l == 0 or (l & (l - 1)):
+        raise ValueError(f"per-shard {what} {l} must be a positive power of two")
+    return l
+
+
+def _to(x, dev: torch.device, dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """A numpy array or a tensor -> a tensor on ``dev`` (a tensor already
+    there is returned as it is, views included)."""
+    if isinstance(x, torch.Tensor):
+        if x.dtype != dtype:
+            raise TypeError(f"expected {dtype}, got {x.dtype}")
+        return x.to(dev)
+    return as_tensor(x, dev, dtype)
+
+
+def _split(x, d: int, dim: int) -> list:
+    """``d`` equal consecutive chunks of ``x`` along ``dim`` (views)."""
+    step = x.shape[dim] // d
+    return [x[(slice(None),) * dim + (slice(s * step, (s + 1) * step),)] for s in range(d)]
+
+
+def _gather(parts: Sequence[torch.Tensor], dev: torch.device, dim: int = 0) -> torch.Tensor:
+    """Concatenate per-device tensors on ``dev`` (the JAX ``all_gather``)."""
+    return torch.cat([p.to(dev) for p in parts], dim=dim)
+
+
+def _psum(parts: Sequence[torch.Tensor], dev: torch.device) -> torch.Tensor:
+    """Sum per-device tensors on ``dev`` (the JAX ``psum``)."""
+    total = parts[0].to(dev)
+    for p in parts[1:]:
+        total = total + p.to(dev)
+    return total
+
+
+def _top_root(roots: Sequence[torch.Tensor], dev: torch.device) -> torch.Tensor:
+    """[8] root of the tree over the D shard roots, reduced on ``dev``."""
+    return build_levels(_gather(roots, dev))[-1][0]
+
+
+def sharded_tree_root(mesh: Mesh, leaves, axis: str = "key") -> torch.Tensor:
+    """Root of the Merkle tree over [N, 8] leaf digests (numpy uint32 or an
+    int32 tensor), keyspace-sharded over ``mesh``'s ``axis``.
+
+    N must equal mesh.shape[axis] * L with L a power of two (pad the
+    keyspace before calling). Returns [8] int32 on the axis's first device,
+    bit-identical to ``tree_root(leaves)``.
+    """
+    devs = mesh.axis_devices(axis)
+    _check_shardable(leaves.shape[0], len(devs))
+    roots = [_local_root(_to(block, dev)) for block, dev in zip(_split(leaves, len(devs), 0), devs)]
+    return _top_root(roots, devs[0])
+
+
+def sharded_divergence(
+    mesh: Mesh, digests, present, axis: str = "key"
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Keyspace-sharded multi-replica divergence.
+
+    digests: [R, N, 8] uint32 (numpy, or int32 tensor); present: [R, N]
+    bool; N divisible by the mesh axis. Returns (masks [R, N] bool, counts
+    [R] int32 — summed over the shards), both on the axis's first device.
+    """
+    devs = mesh.axis_devices(axis)
+    d = len(devs)
+    if digests.shape[1] % d:
+        raise ValueError("key axis not divisible by mesh")
+    masks = [
+        divergence_masks(_to(dig, dev), _to(pres, dev, torch.bool))
+        for dig, pres, dev in zip(_split(digests, d, 1), _split(present, d, 1), devs)
+    ]
+    counts = _psum([m.sum(dim=1, dtype=torch.int32) for m in masks], devs[0])
+    return _gather(masks, devs[0], dim=1), counts
+
+
+def sharded_divergence_2d(
+    mesh: Mesh,
+    digests,
+    present,
+    replica_axis: str = "replica",
+    key_axis: str = "key",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Replica-AND-keyspace-sharded divergence for large fleets.
+
+    Over a 2-D ``(replica, key)`` mesh each device holds an [R/Dr, N/Dk]
+    block. Reference replica 0 lives in the first replica shard: each key
+    column copies just that shard's row 0 (digests and presence) to every
+    device of the column — the JAX program's one-row ``all_gather`` — never
+    the other replicas' blocks. Per-replica counts are summed over the key
+    axis only.
+
+    digests [R, N, 8] uint32, present [R, N] bool; R and N divisible by
+    their mesh axes. Returns (masks [R, N] bool, counts [R] int32), both on
+    the first device of the mesh.
+    """
+    r, n = digests.shape[0], digests.shape[1]
+    dr, dk = mesh.shape[replica_axis], mesh.shape[key_axis]
+    if r % dr:
+        raise ValueError(f"replica count {r} not divisible by mesh axis {dr}")
+    if n % dk:
+        raise ValueError(f"key count {n} not divisible by mesh axis {dk}")
+    names = mesh.axis_names
+    grid = np.moveaxis(mesh.devices, (names.index(replica_axis), names.index(key_axis)), (0, 1))
+    grid = grid.reshape(dr, dk, -1)[:, :, 0]
+    dev0 = grid[0, 0]
+    rows = []
+    counts = []
+    dig_cols, pres_cols = _split(digests, dk, 1), _split(present, dk, 1)
+    refs = []
+    for j in range(dk):
+        dev = grid[0, j]
+        refs.append((_to(dig_cols[j][:1], dev), _to(pres_cols[j][:1], dev, torch.bool)))
+    for i in range(dr):
+        row_masks = []
+        for j in range(dk):
+            dev = grid[i, j]
+            dig = _to(_split(dig_cols[j], dr, 0)[i], dev)
+            pres = _to(_split(pres_cols[j], dr, 0)[i], dev, torch.bool)
+            ref_d, ref_p = refs[j][0].to(dev), refs[j][1].to(dev)
+            row_masks.append(divergence_vs_ref(dig, pres, ref_d, ref_p))
+        counts.append(_psum([m.sum(dim=1, dtype=torch.int32) for m in row_masks], grid[i, 0]))
+        rows.append(_gather(row_masks, grid[i, 0], dim=1))
+    return _gather(rows, dev0), _gather(counts, dev0)
+
+
+def make_anti_entropy_step(mesh: Mesh, axis: str = "key"):
+    """The fused anti-entropy step over a keyspace-sharded mesh, as a plain
+    function ``step(blocks, nblocks, digests, present)`` (the JAX package
+    returns a compiled program):
+
+      1. hash every local (key, value) leaf on its shard's device;
+      2. reduce the local leaves to one subtree root, copy the D subtree
+         roots to the first device and finish the top tree there (the
+         per-shard leaf count must be a positive power of two);
+      3. compare R replicas' digest blocks elementwise and sum the
+         per-replica divergence counts.
+
+    Inputs (global shapes, numpy arrays or tensors):
+      blocks  [N, B, 16] uint32 — padded SHA-256 blocks
+      nblocks [N] int32         — valid block count per leaf
+      digests [R, N, 8] uint32  — R replicas' leaf digests
+      present [R, N] bool
+    Returns (root [8] int32, masks [R, N] bool, counts [R] int32), all on
+    the axis's first device.
+    """
+    devs = mesh.axis_devices(axis)
+    d = len(devs)
+
+    def step(blocks, nblocks, digests, present):
+        roots, masks = [], []
+        for blk, nb, dig, pres, dev in zip(
+            _split(blocks, d, 0), _split(nblocks, d, 0),
+            _split(digests, d, 1), _split(present, d, 1), devs,
+        ):
+            roots.append(_local_root(hash_blocks(_to(blk, dev), _to(nb, dev))))
+            masks.append(divergence_masks(_to(dig, dev), _to(pres, dev, torch.bool)))
+        counts = _psum([m.sum(dim=1, dtype=torch.int32) for m in masks], devs[0])
+        return _top_root(roots, devs[0]), _gather(masks, devs[0], dim=1), counts
+
+    return step
+
+
+def sharded_anti_entropy_step(
+    mesh: Mesh, blocks, nblocks, digests, present, axis: str = "key"
+):
+    """Run the fused hash+build+diff step (see :func:`make_anti_entropy_step`)."""
+    _check_shardable(blocks.shape[0], mesh.shape[axis])
+    if digests.shape[1] != blocks.shape[0]:
+        raise ValueError(
+            f"digest key axis {digests.shape[1]} != leaf count {blocks.shape[0]}"
+        )
+    return make_anti_entropy_step(mesh, axis)(blocks, nblocks, digests, present)
+
+
+# --------------------------------------------------------------------------
+# Serving-tree helpers (the ShardedDeviceMerkleState backend).
+#
+# The padded tree at capacity C = D * L decomposes like the root above:
+# shard s holds the levels of leaves [s*L, (s+1)*L) — sizes L .. 1, every
+# pair merge inside the shard — and concatenating the shards' level j gives
+# the global padded level j. Only the log2(D) top levels combine shards:
+# the D shard roots are copied to the first device and reduced there. The
+# top tree's level 0 is the global level of size D. A shard may hold one
+# leaf (L = 1, when the keyspace is smaller than D): its only level is its
+# root, and the top tree does the rest.
+
+
+def _top_levels(shard_levels: Sequence[list], dev: torch.device) -> list[torch.Tensor]:
+    """The top tree over the shard roots, on ``dev``: sizes D .. 1."""
+    return _reduce_levels(_gather([lv[-1] for lv in shard_levels], dev))
+
+
+def _hash_into(leaves: Sequence[torch.Tensor], pos: np.ndarray, blocks: np.ndarray,
+               nblocks: np.ndarray) -> None:
+    """Hash the packed leaves whose global slots are the sorted ``pos`` on
+    the device of the shard each falls in, and write them there."""
+    l = leaves[0].shape[0]
+    bounds = np.searchsorted(pos, np.arange(len(leaves) + 1) * l)
+    for s, lv in enumerate(leaves):
+        a, b = bounds[s], bounds[s + 1]
+        if a == b:
+            continue
+        dev = lv.device
+        digests = hash_blocks(as_tensor(blocks[a:b], dev), as_tensor(nblocks[a:b], dev))
+        lv.index_put_((as_tensor(pos[a:b] - s * l, dev, torch.int64),), digests)
+
+
+def sharded_build(devices: Sequence[torch.device], capacity: int, blocks: np.ndarray,
+                  nblocks: np.ndarray) -> tuple[list, list]:
+    """The n packed leaves (slots 0 .. n-1 of a zero-padded capacity) ->
+    (per-shard levels, top levels): each shard hashes and reduces its own
+    slice on its own device."""
+    l = _check_shardable(capacity, len(devices), "capacity")
+    leaves = [torch.zeros((l, 8), dtype=torch.int32, device=dev) for dev in devices]
+    _hash_into(leaves, np.arange(len(nblocks)), blocks, nblocks)
+    shards = [_reduce_levels(lv) for lv in leaves]
+    return shards, _top_levels(shards, devices[0])
+
+
+def sharded_scatter(shard_levels: list, top: list, counters: list, blocks: np.ndarray,
+                    nblocks: np.ndarray, pos: np.ndarray) -> list:
+    """Value batch of the k packed leaves at the sorted unique global slots
+    ``pos``, routed per shard on the host: each shard that received keys
+    runs one fused ``path_rehash`` launch over its local levels (one-leaf
+    shards write their leaf), in place; then the touched shard roots are
+    copied into the top tree's level 0 and the top tree is reduced again.
+    ``counters[s]`` is shard s's arrival scratch, made here when missing.
+    Returns the new top levels."""
+    d = len(shard_levels)
+    l = shard_levels[0][0].shape[0]
+    bounds = np.searchsorted(pos, np.arange(d + 1) * l)
+    for s, lv in enumerate(shard_levels):
+        a, b = bounds[s], bounds[s + 1]
+        if a == b:
+            continue
+        dev = lv[0].device
+        blk, nb = as_tensor(blocks[a:b], dev), as_tensor(nblocks[a:b], dev)
+        if l == 1:
+            lv[0].copy_(hash_blocks(blk, nb))
+        else:
+            if counters[s] is None:
+                counters[s] = torch.zeros(l - 1, dtype=torch.int32, device=dev)
+            rehash_paths(lv, counters[s], blk, nb, pos[a:b] - s * l)
+        top[0][s : s + 1].copy_(lv[-1])
+    return _reduce_levels(top[0])
+
+
+def sharded_restructure(old_leaves: Sequence[torch.Tensor], devices: Sequence[torch.device],
+                        c_new: int, gather_padded: np.ndarray, fresh_pos: np.ndarray,
+                        blocks: np.ndarray, nblocks: np.ndarray) -> tuple[list, list]:
+    """Shape change over the shards. ``gather_padded`` [c_new] holds each
+    new slot's source slot in the old leaf level, or -1; its non-negative
+    entries increase, so new shard t pulls one run of sources from each of
+    a few old shards. Planned on the host: per (new shard, old shard) pair,
+    the survivors are gathered on the old shard's device, copied to the new
+    one and written into their slots. Then the fresh digests are hashed on
+    the shard each falls in, and every shard is reduced. Survivors are never
+    re-hashed. Returns (per-shard levels, top levels)."""
+    d = len(devices)
+    l_old = old_leaves[0].shape[0]
+    l_new = _check_shardable(c_new, d, "capacity")
+    new_leaves = []
+    for t, dev in enumerate(devices):
+        base = torch.zeros((l_new, 8), dtype=torch.int32, device=dev)
+        g = gather_padded[t * l_new : (t + 1) * l_new]
+        dst = np.flatnonzero(g >= 0)
+        src = g[dst]
+        cuts = np.searchsorted(src, np.arange(d + 1) * l_old)
+        for s in range(d):
+            a, b = cuts[s], cuts[s + 1]
+            if a == b:
+                continue
+            old = old_leaves[s]
+            vals = old[as_tensor(src[a:b] - s * l_old, old.device, torch.int64)]
+            base[as_tensor(dst[a:b], dev, torch.int64)] = vals.to(dev)
+        new_leaves.append(base)
+    _hash_into(new_leaves, fresh_pos, blocks, nblocks)
+    shards = [_reduce_levels(lv) for lv in new_leaves]
+    return shards, _top_levels(shards, devices[0])
+
+
+def sharded_promotion_chain(shard_levels: list, top: list, n: int) -> torch.Tensor:
+    """[len(ref_level_sizes(n)), 8] on the top tree's device: the reference
+    tree's last node at every level over the first n live leaves, the last
+    row its root (the sharded form of ``ops/merkle_paths.promotion_chain``).
+
+    With L leaves per shard, the chain's nodes below the shard-root level
+    all lie in shard s = (n - 1) // L, and there it equals shard s's own
+    chain over its n - s*L live leaves: the two trees' indices differ by
+    s*L / 2^j, even at every level j < log2 L, so the odd levels match.
+    Above it, the chain is the top tree's chain over s + 1 shard roots with
+    row s replaced by shard s's local reference root. Two promotion-chain
+    launches (one when D = 1 or L = 1)."""
+    d = len(shard_levels)
+    l = shard_levels[0][0].shape[0]
+    depth = l.bit_length() - 1  # log2 L: the shard-root level
+    s = (n - 1) // l
+    lv = shard_levels[s]
+    local = lv[0][n - 1 - s * l : n - s * l] if l == 1 else promotion_chain(lv, n - s * l)
+    dev = top[0].device
+    local = local.to(dev)
+    root_s = local[-1:]
+    below = torch.cat([local, root_s.expand(depth + 1 - local.shape[0], 8)])[:depth]
+    if d == 1:
+        above = root_s
+    else:
+        top0 = top[0].clone()
+        top0[s : s + 1] = root_s
+        above = promotion_chain([top0, *top[1:]], s + 1)
+    return torch.cat([below, above])[: len(ref_level_sizes(n))]

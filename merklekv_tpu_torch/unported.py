@@ -9,6 +9,7 @@ is ignored silently, and none fails as an ``ImportError``.
 from __future__ import annotations
 
 import os
+import types
 from typing import NoReturn
 
 __all__ = ["FEATURES", "SUBCOMMANDS", "refuse", "refuse_config"]
@@ -19,8 +20,6 @@ __all__ = ["FEATURES", "SUBCOMMANDS", "refuse", "refuse_config"]
 
 # feature -> (what it is, its ROADMAP item)
 FEATURES = {
-    "sharding": ('the sharded serving tree ([device] sharding != "off")',
-                 "ROADMAP Queue A item 3"),
     "multihost": ("the multi-host device mesh (MKV_COORDINATOR)",
                   "ROADMAP Queue A item 4"),
     "storage": ("durable storage ([storage] enabled / --durable, storage/)",
@@ -56,8 +55,6 @@ def refuse_config(cfg) -> None:
         refuse("partitions")
     if cfg.bootstrap.enabled:
         refuse("bootstrap")
-    if cfg.device.sharding != "off" or cfg.device.sharded_mirror:
-        refuse("sharding")
 
 
 def _refusing(feature: str, name: str):
@@ -76,3 +73,9 @@ RebalanceManager = _refusing("partitions", "RebalanceManager")
 BootstrapSession = _refusing("bootstrap", "BootstrapSession")
 DurableStore = _refusing("storage", "DurableStore")
 node_data_dir = _refusing("storage", "node_data_dir")
+# The JAX package's ``parallel.multihost`` module: every function refuses.
+multihost = types.SimpleNamespace(**{
+    name: _refusing("multihost", name)
+    for name in ("initialize", "is_initialized", "process_count", "process_index",
+                 "global_key_mesh", "lift_local_shards")
+})

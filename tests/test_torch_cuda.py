@@ -122,6 +122,42 @@ def test_serving_tree_on_card_matches_cpu(dev):
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("n", [3, 300, 1025])
+def test_sharded_state_on_card_matches_single_device(dev, n):
+    """The sharded serving tree over ``[cuda:0] * 4`` (one-leaf shards at
+    n = 3) against the single-device state on the card: roots, every level,
+    TREELEVEL slices, through value and structural batches; a value batch is
+    one ``path_rehash`` per shard that received keys plus the top reduce."""
+    from merklekv_tpu_torch.parallel import ShardedDeviceMerkleState
+
+    items = {b"sh%05d" % i: b"v%d" % i for i in range(n)}
+    card = ShardedDeviceMerkleState.from_items(items.items(), shards=4, devices=[dev] * 4)
+    one = DeviceMerkleState.from_items(items.items())
+    rng = np.random.RandomState(n)
+    for round_ in range(4):
+        # Updates of live keys only: rounds 0, 1 and 3 are value batches.
+        live = one._keys
+        keys = sorted({live[i] for i in rng.randint(0, len(live), size=max(1, n // 10))})
+        batch = [(k, b"u%d" % round_) for k in keys]
+        if round_ == 2:
+            batch += [(b"sh%05d-x" % i, b"new") for i in range(0, n, 7)]
+            batch += [(b"sh%05d" % i, None) for i in range(1, n, 11)]
+        before = dict(sc.LAUNCHES)
+        card.apply(batch)
+        card.flush_pending()
+        delta = {name: sc.LAUNCHES[name] - before[name] for name in before}
+        if round_ != 2 and card._capacity >= 8:
+            owners = len(set(card._positions(keys) // (card._capacity // 4)))
+            assert delta == {"leaf": 0, "node_level": 2, "node_pairs": 0,
+                             "path_rehash": owners, "promotion_chain": 0}
+        one.apply(batch)
+        assert card.root_hex() == one.root_hex()
+        for level, m in enumerate(card.ref_level_sizes(card.leaf_count())):
+            assert card.level_nodes(level, 0, m) == one.level_nodes(level, 0, m)
+    for a, b in zip(card.to_numpy_levels(), one.to_numpy_levels()):
+        np.testing.assert_array_equal(a, b)
+
+
 PATH_C = 4096
 PATH_CASES = {
     "k1": lambda rng: [1234],

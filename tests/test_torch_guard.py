@@ -391,14 +391,17 @@ def case_ladder_records_flight_events_and_counters():
     assert _counter("device.healed_total") == base_heal + 1
 
 
-def case_sharded_rungs_raise_instead_of_stepping_down():
-    items = [(b"k", b"v")]
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        build_state_for_rung(2, items, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        build_state_for_rung(4, items, device="cpu")
+def case_sharded_rungs_build_the_sharded_state():
+    from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
+
+    items = [(b"k%d" % i, b"v") for i in range(5)]
+    golden = CpuMerkleState.from_items(items).root_hex()
+    for rung in (2, 4):
+        st = build_state_for_rung(rung, items, device="cpu", devices=["cpu"] * 4)
+        assert type(st).__name__ == "ShardedDeviceMerkleState" and st._n_shards == rung
+        assert st.root_hex() == golden
     st = build_state_for_rung(1, items, device="cpu")
-    assert type(st).__name__ == "DeviceMerkleState"
+    assert type(st).__name__ == "DeviceMerkleState" and st.root_hex() == golden
 
 
 def case_ladder_steps_to_cpu_rung_on_a_failing_build():

@@ -16,8 +16,9 @@ invalidates and re-warms, never stepping down; a scatter that fails after it
 wrote the levels never lets a stamped TREELEVEL row disagree with the
 stamped root; a hang leaves the pump alive and queries unblocked; the scrub
 catches an injected corruption and rebuilds; ``invalidate`` leaves one
-fallback heartbeat; sharded modes, a missing GPU and a ladder with a CPU
-rung on the card are refused at construction.
+fallback heartbeat; sharded modes serve from the sharded tree over the
+mirror's device list; a missing GPU and a ladder with a CPU rung on the
+card are refused at construction.
 
 Tolerance everywhere: exact equality, digests bit for bit.
 """
@@ -575,23 +576,45 @@ def test_invalidate_leaves_one_fallback_heartbeat():
         m.close()
 
 
-@pytest.mark.parametrize("sharding", ["auto", "4", "8"])
-def test_sharded_modes_raise(sharding):
-    eng = DictEngine([(b"k", b"v")])
-    with pytest.raises(NotImplementedError, match="Queue A item 3"):
-        DeviceTreeMirror(eng, sharding=sharding, device=CPU)
-    with pytest.raises(NotImplementedError):
-        DeviceTreeMirror(eng, device=CPU, ladder=DeviceBackendLadder(int(sharding)
-                                                                       if sharding != "auto" else 2))
-    assert eng.snapshots == 0
+@pytest.mark.parametrize("sharding,width", [("auto", 8), ("4", 4), ("8", 8)])
+def test_sharded_modes_serve_bit_identical(sharding, width):
+    """``auto`` and a shard count, refused before the sharded tree was
+    ported, now serve from it over the mirror's device list, bit for bit;
+    an injected ladder may start on a sharded rung."""
+    eng = DictEngine((b"sk%03d" % i, b"v%d" % i) for i in range(40))
+    m = DeviceTreeMirror(eng, sharding=sharding, device=CPU, devices=[CPU] * 8,
+                         scrub_interval_s=0.0)
+    try:
+        assert m.root_hex() == eng.golden()
+        assert m.backend_level() == m.shard_count() == width
+        want = CpuMerkleState.from_items(eng.snapshot())
+        for level, size in enumerate(ref_level_sizes(40)):
+            assert m.level_nodes(level, 0, size) == want.level_nodes(level, 0, size)
+    finally:
+        m.close()
+    m = DeviceTreeMirror(eng, device=CPU, devices=[CPU] * 8, scrub_interval_s=0.0,
+                         ladder=DeviceBackendLadder(width, cpu_rung=True))
+    try:
+        assert m.root_hex() == eng.golden() and m.backend_level() == width
+    finally:
+        m.close()
 
 
-def test_sharded_alias_raises_and_off_spellings_serve_one_device():
+def test_sharded_alias_and_off_spellings_serve():
+    """The deprecated ``sharded=True`` alias is ``auto``: on the mirror's own
+    one-device list (``device="cpu"``) that is the single-device tree, on a
+    list of two it is rung 2. Every spelling of off serves one device."""
     eng = DictEngine([(b"k", b"v")])
-    with pytest.raises(NotImplementedError):
-        DeviceTreeMirror(eng, sharded=True, device=CPU)
+    for devices, rung in ((None, 1), ([CPU] * 2, 2)):
+        m = DeviceTreeMirror(eng, sharded=True, device=CPU, devices=devices,
+                             scrub_interval_s=0.0)
+        try:
+            assert m.root_hex() == eng.golden() and m.backend_level() == rung
+        finally:
+            m.close()
     for mode in ("off", "OFF", "0", "none", "1"):
-        m = DeviceTreeMirror(eng, sharding=mode, device=CPU, scrub_interval_s=0.0)
+        m = DeviceTreeMirror(eng, sharding=mode, device=CPU, devices=[CPU] * 8,
+                             scrub_interval_s=0.0)
         try:
             assert m.root_hex() == eng.golden() and m.backend_level() == 1
         finally:

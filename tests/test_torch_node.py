@@ -177,18 +177,36 @@ def _bootstrap(cfg):
     cfg.bootstrap.enabled = True
 
 
-def _sharding(cfg):
-    cfg.device.sharding = "auto"
-
-
 @pytest.mark.parametrize("setup,item", [
-    (_storage, "item 6"), (_partitions, "item 7"), (_bootstrap, "item 8"), (_sharding, "item 3"),
+    (_storage, "item 6"), (_partitions, "item 7"), (_bootstrap, "item 8"),
 ])
 def test_unported_config_is_refused_at_start(cpu_env, setup, item):
     cfg = _cfg()
     setup(cfg)
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
         start(cfg)
+
+
+@pytest.mark.parametrize("field,value", [("sharding", "auto"), ("sharding", "2"),
+                                         ("sharded_mirror", True)])
+def test_sharding_on_one_device_serves_from_one_device(cpu_env, field, value):
+    """``[device] sharding = auto|N`` (refused before the sharded tree was
+    ported) starts; on a one-device host it resolves to the single-device
+    tree, and ``device.shards`` reads 1."""
+    cfg = _cfg()
+    setattr(cfg.device, field, value)
+    run = start(cfg)
+    try:
+        c = MerkleKVClient("127.0.0.1", run.port, timeout=60).connect()
+        items = {b"s%03d" % i: b"v%d" % i for i in range(40)}
+        c.mset({k.decode(): v.decode() for k, v in items.items()})
+        assert _wait(lambda: _mirror_serves(c))
+        _check(c, items.items())
+        m = c.metrics()
+        assert m["device.shards"] == "1" and m["device.backend_level"] == "1"
+        c.close()
+    finally:
+        run.close()
 
 
 def test_multihost_is_refused(cpu_env, monkeypatch):

@@ -35,6 +35,7 @@ from merklekv_tpu_torch.merkle import diff as t_diff
 from merklekv_tpu_torch.merkle import torch_engine as te
 from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState
 from merklekv_tpu_torch.ops import sha256_cuda
+from merklekv_tpu_torch.parallel import ShardedDeviceMerkleState, make_mesh
 from merklekv_tpu_torch.utils.torchenv import as_tensor, resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -158,6 +159,11 @@ _ENTRY_POINTS = {
         {b"a": b"x" * 32}, {}, True),
     "divergence_masks_engine": lambda: t_diff.divergence_masks_engine(
         np.zeros((2, 1, 8), np.uint32), np.ones((2, 1), bool)),
+    "make_mesh": lambda: make_mesh(),
+    "ShardedDeviceMerkleState": lambda: ShardedDeviceMerkleState(),
+    "ShardedDeviceMerkleState.from_items": lambda: ShardedDeviceMerkleState.from_items(
+        [(b"k", b"v")], shards=2),
+    "build_state_for_rung(2)": lambda: build_state_for_rung(2, [(b"k", b"v")]),
 }
 
 
