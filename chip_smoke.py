@@ -56,10 +56,12 @@ Phases, one line each (an uncaught failure exits nonzero):
               ``scatter`` hang under a 200 ms dispatch deadline: the pump
               survives and no root query blocks past 300 ms. Prints the
               re-warm times and the longest gap between served roots.
-7. kernels line — printed after phase 8; per kernel: launches on the main
-              path (phases 3 to 6, 8 and 9, each counted from 0) and, as
-              ``launches_node`` and ``launches_sharded``, those of phases 8
-              and 9 alone; its device time (torch.profiler kernel
+7. kernels line — printed after phase 10; per kernel: launches on the main
+              path (phases 3 to 6 and 8 to 11, each counted from 0; phase
+              11's as its ranks report them) and, as ``launches_node``,
+              ``launches_sharded``, ``launches_durable`` and
+              ``launches_multihost``, those of phases 8, 9, 10 and 11 alone;
+              its device time (torch.profiler kernel
               time), the plain version's time, and its bound; for the two
               serving kernels the ``[times]`` line also gives a modelled
               latency floor (not in the kernels line: it assumes a clock and
@@ -100,10 +102,12 @@ Phases, one line each (an uncaught failure exits nonzero):
               versions. (a) ``sharded_anti_entropy_step`` on the largest
               prefix of phase 3's keys that splits into D power-of-two
               shards (8,388,608 of 10M): root, masks and counts == the
-              single-device step on the same prefix, masks == injected;
+              single-device step on the same prefix and == the per-device
+              form (``multihost.lift_local_shards``: each shard already on
+              its card, so the step copies no input), masks == injected;
               ``sharded_divergence_2d`` over a 2 x 2 mesh on all 10M keys
-              == injected; median of 5 synchronised wall times beside the
-              single-device step's. (b) ``ShardedDeviceMerkleState`` over
+              == injected; median of 5 synchronised wall times of both forms
+              beside the single-device step's. (b) ``ShardedDeviceMerkleState`` over
               1M keys: 50 value batches of 4096 (each exactly one
               ``path_rehash`` per shard that received keys plus the top
               reduce's ``node_level`` launches; a root read two
@@ -119,6 +123,35 @@ Phases, one line each (an uncaught failure exits nonzero):
               and ``heal()`` climbs back to D, roots golden throughout; the
               guard, pump, warm, re-warm, degrade and heal counters are
               exactly those of the one injected failure. Prints its seconds.
+10. durable — the durable node at 1M keys (config 4), ``[storage]
+              merkle_engine = "auto"``, so every snapshot root of 1M keys
+              is hashed on the card. (a) as a user runs it:
+              ``python -m merklekv_tpu_torch --durable --storage-path <tmp>
+              --port 0``, 1M keys over TCP, SIGTERM (exit 0; the newest
+              snapshot, the shutdown one, stamped with the golden root;
+              a compaction may have written one more during the load),
+              ``python -m
+              merklekv_tpu_torch walcheck <dir> --json --engine tpu``
+              (``replay_root`` == golden), restart on the same port
+              (recovery verifies the snapshot root on the card; HASH ==
+              golden), 4096 SETs, SIGKILL 0.3 s later, restart (WAL replay;
+              HASH == the new golden root). (b) in this process through
+              ``__main__.start`` with storage: the recovery check and a
+              forced snapshot each launch ``leaf_kernel`` and
+              ``node_level_kernel``; ``device.fallbacks`` stays 0. Prints
+              ready, load, SIGTERM-to-exit, walcheck, restart and snapshot
+              times (the root's share apart) and the snapshot's size.
+11. multihost — run right after phase 9: the anti-entropy step across
+              processes (``parallel/multihost.py``) on phase 9a's prefix:
+              2 ranks sharing ``cuda:0`` over gloo on a one-card machine,
+              else one NCCL rank per card (2 or 4); prints which. Each rank
+              (this script with ``--rank-of``) packs only its contiguous
+              rows of phase 3's keys, regenerates phase 3's replica stacks
+              from the seed and keeps its rows, lifts them onto its card
+              and runs the step: every rank's root and counts == phase 9a's,
+              its mask rows == injected; median of 5 barrier-synchronised
+              steps. The ranks run under a timeout and are killed on any
+              failure path.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, the script exits nonzero and prints no result.
@@ -165,6 +198,11 @@ SHARDED_BATCHES = 50
 # The sharded drill's heal probe waits this long after the step-down, so it
 # never runs while the fault is still installed.
 SHARDED_HEAL_S = 15.0
+DURABLE_KEYS = NODE_KEYS
+# The WAL append runs behind the acknowledgement (about 5 ms of drain): the
+# durable phase waits this long after its last SET before the SIGKILL.
+DURABLE_WAL_DRAIN_S = 0.3
+MULTIHOST_TIMEOUT_S = 600.0
 
 # Bound arithmetic (H100 SXM, NVIDIA data sheet): 3.35 TB/s HBM. Shifts and
 # logic run only on the 64 INT32 lanes of an SM: 132 SMs x 64 x 1.98 GHz
@@ -467,10 +505,35 @@ def phase_paths(dev, rng: np.random.Generator, depth: int = 20) -> dict:
     return {"max_abs_err": errs}
 
 
-def make_kv(n: int):
-    keys = [b"user:%012d" % i for i in range(n)]
-    values = [b"value-%d-payload" % (i % 9973) for i in range(n)]
+def make_kv(n: int, lo: int = 0):
+    """Rows ``lo`` .. ``n - 1`` of the rebuild keyspace."""
+    keys = [b"user:%012d" % i for i in range(lo, n)]
+    values = [b"value-%d-payload" % (i % 9973) for i in range(lo, n)]
     return keys, values
+
+
+def replica_stacks(dev, seed: int, n_keys: int, n_rep: int):
+    """Replica digests on the device from the seed: replica 0 is the
+    reference; each other replica diverges at 1% of keys, chosen at random
+    without repeats — half with one flipped digest bit, half absent.
+    Returns (digests [R, N, 8], present [R, N], expected masks [R, N]); the
+    same seed gives the same stacks in any process on the same card type."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    base = torch.randint(-(2**31), 2**31 - 1, (n_keys, 8), dtype=torch.int32,
+                         device=dev, generator=gen)
+    digests = base.unsqueeze(0).repeat(n_rep, 1, 1)
+    present = torch.ones((n_rep, n_keys), dtype=torch.bool, device=dev)
+    expected = torch.zeros((n_rep, n_keys), dtype=torch.bool, device=dev)
+    k_div = int(n_keys * DIVERGED_FRACTION)
+    for r in range(1, n_rep):
+        pos = torch.randperm(n_keys, device=dev, generator=gen)[:k_div]
+        flip, gone = pos[: k_div // 2], pos[k_div // 2:]
+        digests[r, flip, r % 8] ^= 1
+        present[r, gone] = False
+        expected[r, pos] = True
+    return digests, present, expected
 
 
 def phase_rebuild(dev, seed: int, n_keys: int = REBUILD_KEYS, n_rep: int = REPLICAS,
@@ -492,22 +555,7 @@ def phase_rebuild(dev, seed: int, n_keys: int = REBUILD_KEYS, n_rep: int = REPLI
     t2 = time.perf_counter()
     blocks = torch.from_numpy(packed.blocks.view(np.int32)).to(dev)
     nblocks = torch.from_numpy(packed.nblocks).to(dev)
-    # Replica digests on the device from the seed: replica 0 is the
-    # reference; each other replica diverges at 1% of keys, chosen at random
-    # without repeats — half with one flipped digest bit, half absent.
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    base = torch.randint(-(2**31), 2**31 - 1, (n_keys, 8), dtype=torch.int32,
-                         device=dev, generator=gen)
-    digests = base.unsqueeze(0).repeat(n_rep, 1, 1)
-    present = torch.ones((n_rep, n_keys), dtype=torch.bool, device=dev)
-    expected = torch.zeros((n_rep, n_keys), dtype=torch.bool, device=dev)
-    k_div = int(n_keys * DIVERGED_FRACTION)
-    for r in range(1, n_rep):
-        pos = torch.randperm(n_keys, device=dev, generator=gen)[:k_div]
-        flip, gone = pos[: k_div // 2], pos[k_div // 2:]
-        digests[r, flip, r % 8] ^= 1
-        present[r, gone] = False
-        expected[r, pos] = True
+    digests, present, expected = replica_stacks(dev, seed, n_keys, n_rep)
     sync()
     t3 = time.perf_counter()
     log(f"[rebuild] host set-up: keys {t1 - t0:.2f} s, pack_leaves {t2 - t1:.2f} s, "
@@ -1086,7 +1134,7 @@ def phase_sharded(dev, seed: int, reb: dict, errs: dict, n_tree: int = TREE_KEYS
         sharded_anti_entropy_step,
         sharded_divergence_2d,
     )
-    from merklekv_tpu_torch.parallel import sharded_merkle
+    from merklekv_tpu_torch.parallel import multihost, sharded_merkle
     from merklekv_tpu_torch.testing.device_faults import DeviceFaultInjector
 
     t_phase = time.perf_counter()
@@ -1163,16 +1211,29 @@ def phase_sharded(dev, seed: int, reb: dict, errs: dict, n_tree: int = TREE_KEYS
             out.append(time.perf_counter() - t)
         return statistics.median(out)
 
+    # The per-device form (``multihost.lift_local_shards``): each shard
+    # already on its device, lifted once outside the timed runs, so the
+    # step copies no input between cards.
+    lifted = multihost.lift_local_shards(mesh, *args)
+    sync_all(devs)
+    with acc:
+        root_p, masks_p, counts_p = sharded_anti_entropy_step(mesh, *lifted)
+        sync_all(devs)
+    if not (torch.equal(root_p, root_s) and torch.equal(masks_p, masks_s)
+            and torch.equal(counts_p, counts_s)):
+        raise AssertionError("the per-device step differs from the single-tensor step")
     step_s = timed(lambda: sharded_anti_entropy_step(mesh, *args), devs)
     single_s = timed(lambda: anti_entropy_forward(*args, device=dev), [dev])
+    step_pd_s = timed(lambda: sharded_anti_entropy_step(mesh, *lifted), devs)
     step2_s = timed(lambda: sharded_anti_entropy_step(mesh, *args), devs)
     log(f"[sharded] (a) anti-entropy step {n_sh} keys x {args[2].shape[0]} replicas ({where}): "
-        f"root, masks and counts == the single-device step, masks == injected; "
-        f"sharded_divergence_2d over a 2 x 2 mesh on all {n_keys} keys == injected, counts "
-        f"{counts_2d.tolist()}; median of 5 wall times, every device synchronised: sharded "
-        f"{step_s * 1e3:.3f} ms then {step2_s * 1e3:.3f} ms, single device "
+        f"root, masks and counts == the single-device step == the per-device form, masks == "
+        f"injected; sharded_divergence_2d over a 2 x 2 mesh on all {n_keys} keys == injected, "
+        f"counts {counts_2d.tolist()}; median of 5 wall times, every device synchronised: "
+        f"sharded {step_s * 1e3:.3f} ms then {step2_s * 1e3:.3f} ms, per-device form (inputs "
+        f"already on their cards) {step_pd_s * 1e3:.3f} ms, single device "
         f"{single_s * 1e3:.3f} ms")
-    del masks_s, masks_1, masks_2d
+    del masks_s, masks_1, masks_2d, masks_p, lifted
 
     # (b) the sharded serving tree at 1M keys, against the single-device
     # state fed the same batches, and the CPU golden tree at the end.
@@ -1358,7 +1419,8 @@ def phase_sharded(dev, seed: int, reb: dict, errs: dict, n_tree: int = TREE_KEYS
         f"slices, staleness 0) == CpuMerkleState; counters {got_c}")
     log(f"[sharded] phase {seconds:.1f} s; launches {acc.total}")
     return {"launches": acc.total, "seconds": seconds, "step_ms": step_s * 1e3,
-            "single_ms": single_s * 1e3, "writes_per_s": rate, "where": where}
+            "step_pd_ms": step_pd_s * 1e3, "single_ms": single_s * 1e3, "writes_per_s": rate,
+            "where": where, "root": root_1, "counts": counts_1, "n_keys": n_sh}
 
 
 # ------------------------------------------------------------ phase 8: node
@@ -1729,6 +1791,337 @@ def phase_node_sync(seed: int, n_keys: int = NODE_KEYS, batch: int = BATCH,
             "sync_s": sync_s, "multi_s": multi_s}
 
 
+# ------------------------------------------------------ phase 10: durable
+
+def _spawn_durable(root_dir, data: str, port: int, env: dict, log_path: str):
+    """``python -m merklekv_tpu_torch --durable`` as a user starts it: (the
+    process, its port, its ``storage: recovered ...`` line)."""
+    with open(log_path, "a") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "merklekv_tpu_torch", "--durable", "--storage-path", data,
+             "--port", str(port)],
+            cwd=str(root_dir), env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+    line = proc.stdout.readline()
+    storage = proc.stdout.readline()
+    if not (line.startswith("merklekv_tpu_torch listening on ")
+            and storage.startswith("storage: recovered ")):
+        proc.kill()
+        proc.wait(30)
+        with open(log_path) as f:
+            raise AssertionError(f"no readiness/storage lines: {line!r} {storage!r} "
+                                 f"{f.read()[-2000:]}")
+    return proc, int(line.split()[3].rsplit(":", 1)[1]), storage.strip()
+
+
+def phase_durable(seed: int, n_keys: int = DURABLE_KEYS, batch: int = BATCH) -> dict:
+    """10: the durable node at 1M keys (config 4), its snapshot roots on the
+    card. (a) spawned as a user runs it: load over TCP, SIGTERM (shutdown
+    snapshot), ``walcheck --json --engine tpu``, restart (recovery verifies
+    the snapshot root on the card), a batch of SETs, SIGKILL after the WAL
+    drain, restart (WAL replay); every root == golden. (b) in this process
+    through ``__main__.start``: the recovery check and a forced snapshot each
+    launch the leaf and level kernels, ``device.fallbacks`` stays 0."""
+    import os
+    import signal
+    import tempfile
+    from pathlib import Path
+
+    from merklekv_tpu_torch.__main__ import parse_config, start
+    from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
+    from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
+    from merklekv_tpu_torch.storage import snapshot as snapmod
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 10)
+    root_dir = Path(__file__).resolve().parent
+    items = _node_items(n_keys)
+    golden = CpuMerkleState.from_items(items)
+    with tempfile.TemporaryDirectory(prefix="mkv-durable-") as tmp:
+        data = os.path.join(tmp, "data")
+        log_path = os.path.join(tmp, "node.err")
+        env = dict(os.environ, PYTHONPATH=str(root_dir))
+        procs = []
+        try:
+            t = time.perf_counter()
+            proc, port, _ = _spawn_durable(root_dir, data, 0, env, log_path)
+            procs.append(proc)
+            ready_s = time.perf_counter() - t
+            c = _client(port)
+            t = time.perf_counter()
+            _tcp_load(c, items)
+            load_s = time.perf_counter() - t
+            if c.hash() != golden.root_hex():
+                raise AssertionError("the durable node's HASH differs from the golden root")
+            c.close()
+            t = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            if proc.wait(600) != 0:
+                raise AssertionError(f"the durable node exited {proc.returncode} on SIGTERM")
+            sigterm_s = time.perf_counter() - t
+            node_dir = os.path.join(data, f"node-{port}")
+            # The newest snapshot is the shutdown one (a compaction may have
+            # written another during the load, past compact_trigger_bytes).
+            snaps = snapmod.list_snapshots(node_dir)
+            if not snaps:
+                raise AssertionError("SIGTERM left no snapshot")
+            snap_bytes = os.path.getsize(snaps[-1][1])
+            if snapmod.read_snapshot_header(snaps[-1][1])[1:3] != (golden.root_hex(), n_keys):
+                raise AssertionError("the shutdown snapshot's stamp is not the golden root")
+
+            t = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "merklekv_tpu_torch", "walcheck", node_dir, "--json",
+                 "--engine", "tpu"],
+                cwd=str(root_dir), env=env, capture_output=True, text=True, timeout=600)
+            walcheck_s = time.perf_counter() - t
+            report = json.loads(out.stdout) if out.returncode == 0 else {}
+            if report.get("replay_root") != golden.root_hex() or report.get("errors"):
+                raise AssertionError(f"walcheck rc {out.returncode}: {out.stdout[-500:]} "
+                                     f"{out.stderr[-1500:]}")
+
+            t = time.perf_counter()
+            proc, _, recovered = _spawn_durable(root_dir, data, port, env, log_path)
+            procs.append(proc)
+            restart_s = time.perf_counter() - t
+            if f"({n_keys} items)" not in recovered:
+                raise AssertionError(f"restart did not load the snapshot: {recovered}")
+            c = _client(port)
+            if c.hash() != golden.root_hex():
+                raise AssertionError("HASH after the snapshot recovery differs from golden")
+            idx = rng.integers(0, n_keys, size=batch)
+            changes = [(b"inc:%09d" % i, b"d%d" % i) for i in idx]
+            _tcp_load(c, changes)
+            golden.apply(changes)
+            c.close()
+            time.sleep(DURABLE_WAL_DRAIN_S)
+            proc.send_signal(signal.SIGKILL)
+            proc.wait(60)
+
+            t = time.perf_counter()
+            proc, _, replayed = _spawn_durable(root_dir, data, port, env, log_path)
+            procs.append(proc)
+            replay_s = time.perf_counter() - t
+            c = _client(port)
+            if c.hash() != golden.root_hex():
+                raise AssertionError(f"HASH after SIGKILL + WAL replay differs from golden "
+                                     f"({replayed})")
+            c.close()
+            proc.send_signal(signal.SIGTERM)
+            if proc.wait(600) != 0:
+                raise AssertionError(f"the durable node exited {proc.returncode} on SIGTERM")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(30)
+
+        # (b) in this process, so the launch counters are readable.
+        base = _counters()
+        root_s = []
+        real = snapmod.compute_root_hex
+
+        def timed_root(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real(*a, **kw)
+            finally:
+                root_s.append(time.perf_counter() - t0)
+
+        snapmod.compute_root_hex = timed_root
+        try:
+            reset_launch_counts()
+            t = time.perf_counter()
+            run = start(parse_config(["--durable", "--storage-path", data, "--port", str(port)]))
+            recover_s = time.perf_counter() - t
+            at_recovery = dict(LAUNCHES)
+            try:
+                if run.recovery.final_root != golden.root_hex():
+                    raise AssertionError("in-process recovery root differs from golden")
+                t = time.perf_counter()
+                path = run.storage.snapshot_now()
+                snap_s = time.perf_counter() - t
+                at_snapshot = {k: v - at_recovery[k] for k, v in LAUNCHES.items()}
+                if snapmod.read_snapshot_header(path)[1] != golden.root_hex():
+                    raise AssertionError("the forced snapshot's stamp is not the golden root")
+            finally:
+                run.close()
+        finally:
+            snapmod.compute_root_hex = real
+        launches = dict(LAUNCHES)
+    for what, got in (("the recovery check", at_recovery), ("the forced snapshot", at_snapshot)):
+        if got["leaf"] != 1 or got["node_level"] < 1:
+            raise AssertionError(f"{what} did not hash on the card: {got}")
+    fallbacks = _counters().get("device.fallbacks", 0) - base.get("device.fallbacks", 0)
+    if fallbacks:
+        raise AssertionError(f"device.fallbacks rose by {fallbacks}")
+    log(f"[durable] (a) python -m merklekv_tpu_torch --durable, {n_keys} keys: ready in "
+        f"{ready_s:.3f} s; loaded over TCP in {load_s:.3f} s; SIGTERM to exit 0 (final drain + "
+        f"shutdown snapshot) {sigterm_s:.3f} s, {len(snaps)} snapshot(s), the newest "
+        f"{snap_bytes} bytes stamped with the "
+        f"golden root; walcheck --json --engine tpu {walcheck_s:.3f} s, replay_root == golden; "
+        f"restart to the storage line (recovery, root verified on the card) {restart_s:.3f} s, "
+        f"HASH == golden; {batch} SETs, SIGKILL {DURABLE_WAL_DRAIN_S:g} s later, restart "
+        f"(snapshot + WAL replay) {replay_s:.3f} s, HASH == the new golden root ({replayed})")
+    log(f"[durable] (b) in-process start with recovery {recover_s:.3f} s (its root "
+        f"{root_s[0]:.3f} s), launches {at_recovery}; forced snapshot {snap_s:.3f} s (its root "
+        f"{root_s[1]:.3f} s), launches {at_snapshot}; shutdown snapshot root {root_s[2]:.3f} s; "
+        f"device.fallbacks +0; launches in all {launches}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "ready_s": ready_s, "load_s": load_s, "sigterm_s": sigterm_s,
+            "walcheck_s": walcheck_s, "restart_s": restart_s, "replay_s": replay_s,
+            "snap_s": snap_s, "root_s": root_s[1], "snap_bytes": snap_bytes}
+
+
+# --------------------------------------------------- phase 11: multi-process
+
+def multihost_topology() -> tuple[int, str, list, str]:
+    """(ranks, backend, each rank's CUDA_VISIBLE_DEVICES, description): one
+    NCCL rank per card on a 2-4 card host, else two ranks sharing card 0
+    over gloo (NCCL refuses two ranks on one card)."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if count >= 2:
+        world = 4 if count >= 4 else 2
+        return world, "nccl", [str(i) for i in range(world)], \
+            f"{world} ranks, one per card, over NCCL"
+    return 2, "gloo", ["0", "0"], "2 ranks sharing cuda:0 over gloo"
+
+
+def rank_main(backend: str, seed: int, n_keys: int) -> int:
+    """One rank of phase 11, spawned by :func:`phase_multihost` with the
+    ``MKV_*`` topology in its environment: pack this rank's contiguous rows
+    of phase 3's keys, regenerate phase 3's replica stacks from the seed and
+    keep its rows, lift them onto its card, run the step (launches counted)
+    and 5 timed steps, every rank synchronised by a barrier. Prints one JSON
+    line."""
+    import torch
+    import torch.distributed as dist
+
+    from merklekv_tpu_torch.merkle.packing import pack_leaves
+    from merklekv_tpu_torch.ops.sha256 import digest_to_bytes
+    from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
+    from merklekv_tpu_torch.parallel import multihost, sharded_anti_entropy_step
+    from merklekv_tpu_torch.utils.torchenv import words_np
+
+    multihost.initialize(backend=backend)
+    rank, world = multihost.process_index(), multihost.process_count()
+    mesh = multihost.global_key_mesh()  # this rank's card
+    dev = mesh.axis_devices("key")[0]
+    t = time.perf_counter()
+    lo, hi = rank * n_keys // world, (rank + 1) * n_keys // world
+    keys, values = make_kv(hi, lo)
+    packed = pack_leaves(keys, values)
+    del keys, values
+    digests, present, expected = replica_stacks(dev, seed, REBUILD_KEYS, REPLICAS)
+    dig, pres, exp = (x[:, lo:hi].contiguous() for x in (digests, present, expected))
+    del digests, present, expected
+    lifted = multihost.lift_local_shards(mesh, packed.blocks, packed.nblocks, dig, pres)
+    del dig, pres
+    sync()
+    setup_s = time.perf_counter() - t
+    reset_launch_counts()
+    root, masks, counts = sharded_anti_entropy_step(mesh, *lifted)
+    sync()
+    launches = dict(LAUNCHES)
+    masks_ok = bool(torch.equal(masks, exp))
+    del masks
+    times = []
+    for _ in range(5):
+        sync()
+        dist.barrier()
+        t = time.perf_counter()
+        sharded_anti_entropy_step(mesh, *lifted)
+        sync()
+        dist.barrier()
+        times.append(time.perf_counter() - t)
+    print(json.dumps({
+        "rank": rank, "world": world, "rows": [lo, hi], "card": torch.cuda.get_device_name(0),
+        "root": digest_to_bytes(words_np(root)).hex(), "counts": counts.tolist(),
+        "masks_ok": masks_ok, "launches": launches, "setup_s": setup_s,
+        "median_ms": statistics.median(times) * 1e3, "times_ms": [x * 1e3 for x in times],
+    }), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_multihost(seed: int, shd: dict, timeout: float = MULTIHOST_TIMEOUT_S) -> dict:
+    """11: the anti-entropy step across processes
+    (``parallel/multihost.py``) on phase 9a's prefix: each rank packs and
+    lifts only its rows; every rank's root and counts == phase 9a's (so ==
+    the injected divergence), its mask rows == injected."""
+    import os
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    from merklekv_tpu_torch.ops.sha256 import digest_to_bytes
+    from merklekv_tpu_torch.utils.torchenv import words_np
+
+    world, backend, visible, where = multihost_topology()
+    n_keys = shd["n_keys"]
+    want_root = digest_to_bytes(words_np(shd["root"])).hex()
+    want_counts = shd["counts"].tolist()
+    log(f"[multihost] {where}: {n_keys} keys x {REPLICAS} replicas")
+    sk = socket.socket()
+    sk.bind(("127.0.0.1", 0))
+    port = sk.getsockname()[1]
+    sk.close()
+    root_dir = Path(__file__).resolve().parent
+    procs, logs = [], []
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="mkv-ranks-") as tmp:
+        try:
+            for rank in range(world):
+                env = dict(os.environ, PYTHONPATH=str(root_dir),
+                           MKV_COORDINATOR=f"127.0.0.1:{port}", MKV_NUM_PROCESSES=str(world),
+                           MKV_PROCESS_ID=str(rank), CUDA_VISIBLE_DEVICES=visible[rank])
+                logs.append(os.path.join(tmp, f"rank{rank}.log"))
+                with open(logs[-1], "w") as out:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, str(root_dir / "chip_smoke.py"), "--rank-of", backend,
+                         "--seed", str(seed), "--keys", str(n_keys)],
+                        cwd=str(root_dir), env=env, stdout=out, stderr=subprocess.STDOUT))
+            end = time.monotonic() + timeout
+            for rank, p in enumerate(procs):
+                try:
+                    rc = p.wait(max(1.0, end - time.monotonic()))
+                except subprocess.TimeoutExpired:
+                    rc = None
+                if rc != 0:
+                    how = "timed out" if rc is None else f"exited {rc}"
+                    with open(logs[rank]) as f:
+                        raise AssertionError(f"rank {rank} {how}: {f.read()[-3000:]}")
+            outs = []
+            for path in logs:
+                with open(path) as f:
+                    outs.append(json.loads(f.read().strip().splitlines()[-1]))
+        finally:
+            # A rank that fails leaves the others blocked in the rendezvous
+            # or a collective: none outlives the phase.
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(30)
+    wall_s = time.perf_counter() - t
+    for out in outs:
+        if out["root"] != want_root or out["counts"] != want_counts or not out["masks_ok"]:
+            raise AssertionError(f"rank {out['rank']}: root {out['root'][:16]}, counts "
+                                 f"{out['counts']}, masks_ok {out['masks_ok']} != phase 9a's "
+                                 f"{want_root[:16]}, {want_counts}")
+        if out["launches"]["leaf"] != 1 or out["launches"]["node_level"] < 1:
+            raise AssertionError(f"rank {out['rank']} did not hash on its card: {out['launches']}")
+    launches = {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
+    med = outs[0]["median_ms"]
+    setups = ", ".join(f"{o['setup_s']:.2f}" for o in outs)
+    log(f"[multihost] every rank's root and counts {want_counts} == phase 9a's, mask rows == "
+        f"injected; setup per rank {setups} s; step "
+        f"median of 5 (barrier-synchronised) {med:.3f} ms vs the single-process sharded step "
+        f"{shd['step_pd_ms']:.3f} ms (per-device form) and single device "
+        f"{shd['single_ms']:.3f} ms; phase {wall_s:.1f} s; launches {launches}")
+    return {"launches": launches, "step_ms": med, "where": where, "seconds": wall_s}
+
+
 def path_work(pos: np.ndarray, depth: int) -> dict:
     """What the fused kernel must do for these sorted positions on a
     2^depth-leaf tree: distinct touched internal nodes (each hashed once)
@@ -1877,6 +2270,9 @@ def device_profile(label: str, fn, reps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--rank-of", choices=["gloo", "nccl"],
+                    help="run as one rank of phase 11 (spawned by the script itself)")
+    ap.add_argument("--keys", type=int, help="phase 11's key count (with --rank-of)")
     args = ap.parse_args()
 
     import torch
@@ -1887,6 +2283,8 @@ def main() -> int:
         return 2
     import merklekv_tpu_torch  # noqa: F401  (fails outside a checkout)
 
+    if args.rank_of:
+        return rank_main(args.rank_of, args.seed, args.keys)
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = gpu_line()
@@ -1901,13 +2299,16 @@ def main() -> int:
     shd = phase_sharded(dev, args.seed, reb, errs)
     for key in ("digests", "present", "expected"):
         del reb[key]
+    torch.cuda.empty_cache()
+    mh = phase_multihost(args.seed, shd)
     srv = phase_serving(dev, args.seed)
     mir = phase_mirror(dev, args.seed)
     drill = phase_fault_drill(dev, args.seed)
     entry = phase_node_entry(args.seed)
     node = phase_node_sync(args.seed)
+    dur = phase_durable(args.seed)
     phases = {"rebuild": reb, "serving": srv, "mirror": mir, "drill": drill, "node": node,
-              "sharded": shd}
+              "sharded": shd, "durable": dur, "multihost": mh}
     launches = {k: sum(ph["launches"][k] for ph in phases.values()) for k in srv["launches"]}
     if min(launches[name] for name in MAIN_PATH_KERNELS) < 1:
         raise AssertionError(f"a kernel was never launched on the main path: {launches}")
@@ -1916,6 +2317,8 @@ def main() -> int:
     for k in kernels:
         k["launches_node"] = node["launches"][k["name"]]
         k["launches_sharded"] = shd["launches"][k["name"]]
+        k["launches_durable"] = dur["launches"][k["name"]]
+        k["launches_multihost"] = mh["launches"][k["name"]]
     device_profile("rebuild+diff 10M x 8", reb.pop("forward"), 3)
     batch = srv.pop("batch")
     prof = device_profile("serving batch of 4096 + root read", batch, 5)
@@ -1931,8 +2334,14 @@ def main() -> int:
         f"{node['warm_s']:.3f} s), {node['writes_per_s']:.0f} writes/s with a forced HASH per "
         f"batch, largest pump lag {node['max_lag_ms']:g} ms, bisect SYNC {node['sync_s']:.3f} s, "
         f"3-node sync_multi {node['multi_s']:.3f} s; sharded ({shd['where']}): step "
-        f"{shd['step_ms']:.3f} ms vs single device {shd['single_ms']:.3f} ms, serving "
-        f"{shd['writes_per_s']:.0f} writes/s, phase {shd['seconds']:.1f} s; card {card}")
+        f"{shd['step_ms']:.3f} ms, per-device form {shd['step_pd_ms']:.3f} ms, vs single device "
+        f"{shd['single_ms']:.3f} ms, serving {shd['writes_per_s']:.0f} writes/s, phase "
+        f"{shd['seconds']:.1f} s; multihost ({mh['where']}): step {mh['step_ms']:.3f} ms, phase "
+        f"{mh['seconds']:.1f} s; durable 1M: ready {dur['ready_s']:.3f} s, load "
+        f"{dur['load_s']:.3f} s, SIGTERM + shutdown snapshot {dur['sigterm_s']:.3f} s, forced "
+        f"snapshot {dur['snap_s']:.3f} s (root {dur['root_s']:.3f} s), snapshot "
+        f"{dur['snap_bytes']} bytes, walcheck {dur['walcheck_s']:.3f} s, recovery restart "
+        f"{dur['restart_s']:.3f} s, WAL-replay restart {dur['replay_s']:.3f} s; card {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

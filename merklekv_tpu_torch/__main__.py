@@ -16,19 +16,29 @@ is not ``"cpu"`` fails at start without a GPU unless that variable says
 
 :func:`start` builds and starts one node in-process and returns a
 :class:`RunningNode` (the tests and ``chip_smoke.py`` drive nodes through
-it); :func:`main` is ``start`` plus the readiness line and the signal wait.
+it); :func:`main` is ``start`` plus the readiness line (then, on a durable
+node, ``storage: recovered ...``) and the signal wait.
 
-Subcommands: ``trace`` is the JAX package's (``obs/tracewire.py``).
-``walcheck``, ``top``, ``blackbox``, ``router`` and ``rebalance`` raise
-``NotImplementedError`` naming their ROADMAP item, as do ``--durable``,
-``[storage] enabled``, ``[cluster] partitions > 0``, ``[bootstrap]
-enabled``, ``[device] sharding != "off"`` and ``MKV_COORDINATOR``
-(``unported.py``).
+``--durable`` or ``[storage] enabled`` adds the durable store
+(``storage/``: WAL, snapshots stamped with a root computed on the node's
+device, verified recovery) under ``<storage_path>/node-<port>``; recovery
+finishes before the listening socket exists on a fixed port, and before the
+readiness line on port 0. ``MKV_COORDINATOR`` (with ``MKV_NUM_PROCESSES``
+and ``MKV_PROCESS_ID``) joins the ``torch.distributed`` group of
+``parallel/multihost.py`` before the first device touch; the node's mirror
+stays on this process's own devices.
+
+Subcommands: ``trace`` and ``walcheck`` are the JAX package's
+(``obs/tracewire.py``, ``storage/walcheck.py``). ``top``, ``blackbox``,
+``router`` and ``rebalance`` raise ``NotImplementedError`` naming their
+ROADMAP item, as do ``[cluster] partitions > 0`` and ``[bootstrap]
+enabled`` (``unported.py``).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import sys
 import time
@@ -41,21 +51,28 @@ __all__ = ["RunningNode", "parse_config", "start", "main"]
 @dataclass
 class RunningNode:
     """One node started by :func:`start`: its config, native engine and
-    server, and the cluster node wired to them."""
+    server, the cluster node wired to them, and the durable store with its
+    recovery report (both ``None`` without ``[storage] enabled``)."""
 
     cfg: object  # config.Config
     engine: object  # native_bindings.NativeEngine
     server: object  # native_bindings.NativeServer
     node: object  # cluster.node.ClusterNode
+    storage: object = None  # storage.DurableStore
+    recovery: object = None  # storage.RecoveryReport
 
     @property
     def port(self) -> int:
         return self.server.port
 
     def close(self) -> None:
-        """Stop the node, then the server, then the engine (the mirror reads
-        through the engine's raw pointer, so it goes first)."""
+        """Stop the node, then the store (its final drain and shutdown
+        snapshot still read through the live server and engine), then the
+        server, then the engine (the mirror reads through the engine's raw
+        pointer, so it goes before)."""
         self.node.stop()
+        if self.storage is not None:
+            self.storage.stop()
         self.server.close()
         self.engine.sync()
         self.engine.close()
@@ -73,8 +90,7 @@ def parse_config(argv: list[str]):
     p.add_argument(
         "--durable",
         action="store_true",
-        help="enable the [storage] WAL+snapshot subsystem (not in the torch "
-             "port yet: refused)",
+        help="enable the [storage] WAL+snapshot subsystem",
     )
     p.add_argument(
         "--metrics-port",
@@ -108,36 +124,70 @@ def parse_config(argv: list[str]):
 
 def start(cfg) -> RunningNode:
     """Build and start one node for ``cfg``: refuse what the port does not
-    have, then the native engine and server, then the cluster node (whose
-    construction resolves the device, and so fails here without a GPU)."""
+    have, join the process group when ``MKV_COORDINATOR`` is set, then the
+    native engine, the durable store's recovery (``[storage] enabled``),
+    the server, and the cluster node (whose construction resolves the
+    device, and so fails here without a GPU)."""
     from merklekv_tpu_torch.cluster.node import ClusterNode
     from merklekv_tpu_torch.native_bindings import NativeEngine, NativeServer
     from merklekv_tpu_torch.unported import refuse_config
     from merklekv_tpu_torch.version import __version__
 
     refuse_config(cfg)
+    if os.environ.get("MKV_COORDINATOR"):
+        # Before any device touch (docs/DEPLOYMENT.md "Multi-host").
+        from merklekv_tpu_torch.parallel import multihost
+
+        multihost.initialize()
     engine = NativeEngine(cfg.engine, cfg.storage_path)
     server: Optional[NativeServer] = None
+    storage = recovery = None
     try:
+        # Durable subsystem. The data dir is per-port (node_data_dir); on a
+        # FIXED port it is known up front, so recovery completes before the
+        # listening socket even exists.
+        if cfg.storage.enabled:
+            from merklekv_tpu_torch.storage import DurableStore, node_data_dir
+
+            if cfg.port != 0:
+                storage = DurableStore(
+                    engine, cfg.storage, node_data_dir(cfg.storage_path, cfg.port)
+                )
+                recovery = storage.recover()
         server = NativeServer(
             engine, cfg.host, cfg.port, version=__version__,
             exit_on_shutdown=False, io_threads=cfg.server.io_threads,
             reuseport=cfg.server.reuseport, zero_copy=cfg.server.zero_copy,
             max_line=cfg.server.max_line_bytes,
         )
+        if cfg.storage.enabled:
+            # BEFORE start(): stage change events from the very first
+            # accepted command, so no write bypasses the WAL.
+            server.enable_events(True)
         server.start()
+        if cfg.storage.enabled:
+            if storage is None:
+                # port 0: the dir derives from the just-bound port;
+                # recovery still finishes before the readiness line.
+                storage = DurableStore(
+                    engine, cfg.storage, node_data_dir(cfg.storage_path, server.port)
+                )
+                recovery = storage.recover()
+            storage.start()
         # Always wire the cluster control plane: the SYNC command must work
         # on a bare node (reference parity — SyncManager is unconditional,
         # server.rs:388-390); replication/anti-entropy loops only start
         # when enabled in config.
-        node = ClusterNode(cfg, engine, server)
+        node = ClusterNode(cfg, engine, server, storage=storage)
         node.start()
     except BaseException:
+        if storage is not None:
+            storage.stop()
         if server is not None:
             server.close()
         engine.close()
         raise
-    return RunningNode(cfg, engine, server, node)
+    return RunningNode(cfg, engine, server, node, storage, recovery)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -150,6 +200,12 @@ def main(argv: list[str] | None = None) -> int:
         from merklekv_tpu_torch.obs.tracewire import main as trace_main
 
         return trace_main(argv[1:])
+    if argv and argv[0] == "walcheck":
+        # Offline tool: verify WAL frames + snapshot root stamps without a
+        # server (docs/PERSISTENCE.md "Verification").
+        from merklekv_tpu_torch.storage.walcheck import main as walcheck_main
+
+        return walcheck_main(argv[1:])
     from merklekv_tpu_torch.unported import SUBCOMMANDS, refuse
 
     if argv and argv[0] in SUBCOMMANDS:
@@ -157,6 +213,16 @@ def main(argv: list[str] | None = None) -> int:
 
     cfg = parse_config(argv)
     run = start(cfg)
+    stop = {"flag": False}
+
+    def on_signal(signum, frame):
+        stop["flag"] = True
+
+    # Before the readiness line: a harness may signal as soon as it has
+    # read it, and a SIGTERM must then reach the handler (exit 0 after the
+    # shutdown snapshot), not the default action.
+    signal.signal(signal.SIGINT, on_signal)
+    signal.signal(signal.SIGTERM, on_signal)
     # Readiness line LAST: spawning harnesses treat it as "fully up",
     # including the replication subscription (QoS-0 — a publish before the
     # peer subscribes is lost until anti-entropy repairs it).
@@ -165,19 +231,14 @@ def main(argv: list[str] | None = None) -> int:
         f"(engine={cfg.engine})",
         flush=True,
     )
+    if run.storage is not None:
+        # After the readiness line — spawning harnesses parse line 1 only.
+        print(f"storage: recovered {run.recovery.summary()}", flush=True)
     if run.node.metrics_port is not None:
         # After the readiness line, same rule: harnesses parse this to find
         # an ephemeral metrics port.
         print(f"metrics: http://{cfg.observability.http_host}:"
               f"{run.node.metrics_port}/metrics", flush=True)
-
-    stop = {"flag": False}
-
-    def on_signal(signum, frame):
-        stop["flag"] = True
-
-    signal.signal(signal.SIGINT, on_signal)
-    signal.signal(signal.SIGTERM, on_signal)
 
     try:
         while not stop["flag"] and not run.server.stopping:

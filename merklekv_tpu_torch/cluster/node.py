@@ -17,9 +17,13 @@ port's modules, except:
 - ``[device] sharding = auto|N`` (and the ``sharded_mirror`` alias) shards
   the mirror's tree over the host's cards (``parallel/sharded_state.py``);
   on a one-card host ``auto`` serves from one device;
-- features the port does not have yet (durable storage, partitions and
-  rebalancing, bootstrap, multi-host) raise ``NotImplementedError`` naming
-  their ROADMAP item (``unported.py``).
+- a durable node's store (``storage/``) hashes its snapshot roots on the
+  node's device; the mirror stays on this process's own devices when the
+  process has joined a multi-process group (``parallel/multihost.py``), as
+  in the JAX node;
+- features the port does not have yet (partitions and rebalancing,
+  bootstrap) raise ``NotImplementedError`` naming their ROADMAP item
+  (``unported.py``).
 
 Owns the SYNC / REPLICATE cluster-command callback (the native server
 delegates those verbs here), the Replicator lifecycle (REPLICATE
@@ -66,8 +70,6 @@ class ClusterNode:
         storage=None,  # Optional[DurableStore], already recovered
     ) -> None:
         refuse_config(cfg)
-        if storage is not None:
-            refuse("storage")
         # The device of the mirror and of anti-entropy's device route, by
         # name (a CPU node never imports torch here). A CUDA device is
         # resolved now, so a node without a GPU fails at start instead of

@@ -1,8 +1,7 @@
 """Multi-device layer of the torch port (counterpart of
 ``merklekv_tpu/parallel/``): meshes over the host's devices, the sharded
-Merkle build and diff, and the sharded serving-tree state. The multi-host
-mesh is not ported: ``multihost`` is the refusing stand-in of
-``unported.py``."""
+Merkle build and diff, the sharded serving-tree state, and the
+multi-process keyspace mesh over ``torch.distributed`` (``multihost``)."""
 
 from merklekv_tpu_torch.parallel.mesh import Mesh, make_mesh
 from merklekv_tpu_torch.parallel.sharded_merkle import (
@@ -16,7 +15,7 @@ from merklekv_tpu_torch.parallel.sharded_state import (
     ShardedDeviceMerkleState,
     resolve_shard_count,
 )
-from merklekv_tpu_torch.unported import multihost
+from merklekv_tpu_torch.parallel import multihost
 
 __all__ = [
     "Mesh",

@@ -27,13 +27,27 @@ __all__ = ["Mesh", "make_mesh", "local_devices", "shard_devices"]
 
 
 class Mesh:
-    """A numpy object array of ``torch.device`` plus its axis names."""
+    """A numpy object array of ``torch.device`` plus its axis names.
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]) -> None:
+    A mesh that spans processes (``parallel/multihost.py::global_key_mesh``)
+    holds only this process's devices; ``process_index``, ``process_count``
+    and ``group`` (a ``torch.distributed`` process group) place them in the
+    global ``key`` axis, process 0's devices first. The sharded functions
+    then combine their per-device results across the group."""
+
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 process_index: int = 0, process_count: int = 1, group=None) -> None:
         if devices.ndim != len(axis_names):
             raise ValueError(f"{devices.ndim}-d device array for axes {tuple(axis_names)}")
         self.devices = devices
         self.axis_names = tuple(axis_names)
+        self.process_index = process_index
+        self.process_count = process_count
+        self.group = group
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.process_count > 1
 
     @property
     def shape(self) -> dict[str, int]:

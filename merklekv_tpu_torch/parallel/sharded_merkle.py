@@ -20,6 +20,23 @@ copy after the work already queued on both devices' current streams. The
 results the JAX programs return as global sharded arrays are returned as
 tensors on the first device of the axis.
 
+Two input forms. A global tensor (or numpy array) is split along its key
+dimension and each slice copied to its device. The per-device form — a list
+holding one tensor per device of the axis, each already on its device, as
+``parallel/multihost.py::lift_local_shards`` returns them — is used as it
+is, with no copy.
+
+Across processes (a mesh from ``multihost.global_key_mesh`` whose group has
+more than one rank), the inputs are this rank's rows and the local results
+are combined over the group: the D_global subtree roots by an ``all_reduce``
+sum of a zero-filled [D_global, 8] int32 buffer in which each rank has
+written only its own rows (each row has one nonzero contributor, so the sum
+is exactly the concatenation — gloo documents CUDA tensors only for
+``broadcast`` and ``all_reduce``, so there is no ``all_gather`` here), and
+the per-replica counts by an ``all_reduce`` sum. The root and the counts are
+then the same on every rank; the masks stay this rank's rows (the JAX
+docstring's "each process addressing only its own rows").
+
 The serving-tree helpers at the end keep the padded tree of capacity
 C = D * L as D lists of shard-local levels (sizes L .. 1) plus the top tree
 on the first device (sizes D .. 1); ``parallel/sharded_state.py`` drives
@@ -43,6 +60,7 @@ from merklekv_tpu_torch.ops.dispatch import (
     rehash_paths,
 )
 from merklekv_tpu_torch.parallel.mesh import Mesh
+from merklekv_tpu_torch.unported import refuse
 from merklekv_tpu_torch.utils.torchenv import as_tensor
 
 __all__ = [
@@ -100,36 +118,95 @@ def _split(x, d: int, dim: int) -> list:
     return [x[(slice(None),) * dim + (slice(s * step, (s + 1) * step),)] for s in range(d)]
 
 
-def _gather(parts: Sequence[torch.Tensor], dev: torch.device, dim: int = 0) -> torch.Tensor:
-    """Concatenate per-device tensors on ``dev`` (the JAX ``all_gather``)."""
-    return torch.cat([p.to(dev) for p in parts], dim=dim)
+def _per_device(x) -> bool:
+    return isinstance(x, (list, tuple))
 
 
-def _psum(parts: Sequence[torch.Tensor], dev: torch.device) -> torch.Tensor:
-    """Sum per-device tensors on ``dev`` (the JAX ``psum``)."""
+def _on(t: torch.Tensor, dev: torch.device) -> bool:
+    return t.device.type == dev.type and (dev.index is None or t.device.index == dev.index)
+
+
+def _shards(x, devs: Sequence[torch.device], dim: int,
+            dtype: torch.dtype = torch.int32) -> list[torch.Tensor]:
+    """One tensor per device: the per-device form as given (each shard must
+    already sit on its device; nothing is copied), or a global input split
+    along ``dim`` with each slice moved to its device."""
+    if not _per_device(x):
+        return [_to(c, dev, dtype) for c, dev in zip(_split(x, len(devs), dim), devs)]
+    if len(x) != len(devs):
+        raise ValueError(f"{len(x)} per-device shards for {len(devs)} devices")
+    for s, (t, dev) in enumerate(zip(x, devs)):
+        if not isinstance(t, torch.Tensor) or t.dtype != dtype:
+            raise TypeError(f"shard {s}: expected a {dtype} tensor")
+        if not _on(t, dev):
+            raise ValueError(f"shard {s} is on {t.device}, its mesh device is {dev}")
+    return list(x)
+
+
+def _rows(x, dim: int, d: int) -> int:
+    """The key rows of ``x``: global for a tensor, per shard (all equal)
+    for the per-device form."""
+    if not _per_device(x):
+        return x.shape[dim]
+    sizes = {t.shape[dim] for t in x}
+    if len(sizes) != 1:
+        raise ValueError(f"per-device shards differ in length: {sorted(sizes)}")
+    return sizes.pop() * d
+
+
+def _gather(parts: Sequence[torch.Tensor], dev: torch.device, dim: int = 0,
+            mesh: Mesh | None = None) -> torch.Tensor:
+    """Concatenate per-device tensors on ``dev`` (the JAX ``all_gather``).
+    With a ``mesh`` that spans processes, the [d, ...] local result then
+    goes into this rank's rows of a zero-filled [d * ranks, ...] buffer,
+    summed over the group with ``all_reduce`` (dim 0 only)."""
+    local = torch.cat([p.to(dev) for p in parts], dim=dim)
+    if mesh is None or not mesh.spans_processes:
+        return local
+    import torch.distributed as dist
+
+    d = local.shape[0]
+    buf = torch.zeros((d * mesh.process_count, *local.shape[1:]), dtype=local.dtype, device=dev)
+    buf[mesh.process_index * d : (mesh.process_index + 1) * d] = local
+    dist.all_reduce(buf, group=mesh.group)
+    return buf
+
+
+def _psum(parts: Sequence[torch.Tensor], dev: torch.device,
+          mesh: Mesh | None = None) -> torch.Tensor:
+    """Sum per-device tensors on ``dev`` (the JAX ``psum``); with a mesh
+    that spans processes, then ``all_reduce`` sum over its group."""
     total = parts[0].to(dev)
     for p in parts[1:]:
         total = total + p.to(dev)
+    if mesh is not None and mesh.spans_processes:
+        import torch.distributed as dist
+
+        dist.all_reduce(total, group=mesh.group)
     return total
 
 
-def _top_root(roots: Sequence[torch.Tensor], dev: torch.device) -> torch.Tensor:
-    """[8] root of the tree over the D shard roots, reduced on ``dev``."""
-    return build_levels(_gather(roots, dev))[-1][0]
+def _top_root(roots: Sequence[torch.Tensor], dev: torch.device,
+              mesh: Mesh | None = None) -> torch.Tensor:
+    """[8] root of the tree over the shard roots (every rank's, when
+    ``mesh`` spans processes), reduced on ``dev``."""
+    return build_levels(_gather(roots, dev, mesh=mesh))[-1][0]
 
 
 def sharded_tree_root(mesh: Mesh, leaves, axis: str = "key") -> torch.Tensor:
     """Root of the Merkle tree over [N, 8] leaf digests (numpy uint32 or an
-    int32 tensor), keyspace-sharded over ``mesh``'s ``axis``.
+    int32 tensor, or the per-device form: one [L, 8] tensor per device),
+    keyspace-sharded over ``mesh``'s ``axis``.
 
     N must equal mesh.shape[axis] * L with L a power of two (pad the
     keyspace before calling). Returns [8] int32 on the axis's first device,
-    bit-identical to ``tree_root(leaves)``.
+    bit-identical to ``tree_root(leaves)``; across processes, the root of
+    every rank's rows, the same on each rank.
     """
     devs = mesh.axis_devices(axis)
-    _check_shardable(leaves.shape[0], len(devs))
-    roots = [_local_root(_to(block, dev)) for block, dev in zip(_split(leaves, len(devs), 0), devs)]
-    return _top_root(roots, devs[0])
+    _check_shardable(_rows(leaves, 0, len(devs)), len(devs))
+    roots = [_local_root(block) for block in _shards(leaves, devs, 0)]
+    return _top_root(roots, devs[0], mesh)
 
 
 def sharded_divergence(
@@ -138,18 +215,20 @@ def sharded_divergence(
     """Keyspace-sharded multi-replica divergence.
 
     digests: [R, N, 8] uint32 (numpy, or int32 tensor); present: [R, N]
-    bool; N divisible by the mesh axis. Returns (masks [R, N] bool, counts
-    [R] int32 — summed over the shards), both on the axis's first device.
+    bool; N divisible by the mesh axis — or the per-device form of both.
+    Returns (masks [R, N] bool, counts [R] int32 — summed over the shards),
+    both on the axis's first device. Across processes the counts are summed
+    over every rank and the masks are this rank's rows.
     """
     devs = mesh.axis_devices(axis)
     d = len(devs)
-    if digests.shape[1] % d:
+    if _rows(digests, 1, d) % d:
         raise ValueError("key axis not divisible by mesh")
     masks = [
-        divergence_masks(_to(dig, dev), _to(pres, dev, torch.bool))
-        for dig, pres, dev in zip(_split(digests, d, 1), _split(present, d, 1), devs)
+        divergence_masks(dig, pres)
+        for dig, pres in zip(_shards(digests, devs, 1), _shards(present, devs, 1, torch.bool))
     ]
-    counts = _psum([m.sum(dim=1, dtype=torch.int32) for m in masks], devs[0])
+    counts = _psum([m.sum(dim=1, dtype=torch.int32) for m in masks], devs[0], mesh)
     return _gather(masks, devs[0], dim=1), counts
 
 
@@ -171,8 +250,12 @@ def sharded_divergence_2d(
 
     digests [R, N, 8] uint32, present [R, N] bool; R and N divisible by
     their mesh axes. Returns (masks [R, N] bool, counts [R] int32), both on
-    the first device of the mesh.
+    the first device of the mesh. A mesh that spans processes is refused
+    (``NotImplementedError``): this form is not in the port across
+    processes yet.
     """
+    if mesh.spans_processes:
+        refuse("multihost_2d")
     r, n = digests.shape[0], digests.shape[1]
     dr, dk = mesh.shape[replica_axis], mesh.shape[key_axis]
     if r % dr:
@@ -220,22 +303,24 @@ def make_anti_entropy_step(mesh: Mesh, axis: str = "key"):
       nblocks [N] int32         — valid block count per leaf
       digests [R, N, 8] uint32  — R replicas' leaf digests
       present [R, N] bool
-    Returns (root [8] int32, masks [R, N] bool, counts [R] int32), all on
-    the axis's first device.
+    or the per-device form of each (one shard per device, already there:
+    ``multihost.lift_local_shards``). Returns (root [8] int32, masks [R, N]
+    bool, counts [R] int32), all on the axis's first device. Across
+    processes the inputs are this rank's rows: root and counts cover every
+    rank and are the same on each, the masks are this rank's rows.
     """
     devs = mesh.axis_devices(axis)
-    d = len(devs)
 
     def step(blocks, nblocks, digests, present):
         roots, masks = [], []
-        for blk, nb, dig, pres, dev in zip(
-            _split(blocks, d, 0), _split(nblocks, d, 0),
-            _split(digests, d, 1), _split(present, d, 1), devs,
+        for blk, nb, dig, pres in zip(
+            _shards(blocks, devs, 0), _shards(nblocks, devs, 0),
+            _shards(digests, devs, 1), _shards(present, devs, 1, torch.bool),
         ):
-            roots.append(_local_root(hash_blocks(_to(blk, dev), _to(nb, dev))))
-            masks.append(divergence_masks(_to(dig, dev), _to(pres, dev, torch.bool)))
-        counts = _psum([m.sum(dim=1, dtype=torch.int32) for m in masks], devs[0])
-        return _top_root(roots, devs[0]), _gather(masks, devs[0], dim=1), counts
+            roots.append(_local_root(hash_blocks(blk, nb)))
+            masks.append(divergence_masks(dig, pres))
+        counts = _psum([m.sum(dim=1, dtype=torch.int32) for m in masks], devs[0], mesh)
+        return _top_root(roots, devs[0], mesh), _gather(masks, devs[0], dim=1), counts
 
     return step
 
@@ -244,10 +329,12 @@ def sharded_anti_entropy_step(
     mesh: Mesh, blocks, nblocks, digests, present, axis: str = "key"
 ):
     """Run the fused hash+build+diff step (see :func:`make_anti_entropy_step`)."""
-    _check_shardable(blocks.shape[0], mesh.shape[axis])
-    if digests.shape[1] != blocks.shape[0]:
+    d = mesh.shape[axis]
+    n = _rows(blocks, 0, d)
+    _check_shardable(n, d)
+    if _rows(digests, 1, d) != n:
         raise ValueError(
-            f"digest key axis {digests.shape[1]} != leaf count {blocks.shape[0]}"
+            f"digest key axis {_rows(digests, 1, d)} != leaf count {n}"
         )
     return make_anti_entropy_step(mesh, axis)(blocks, nblocks, digests, present)
 

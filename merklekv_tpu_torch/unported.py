@@ -9,8 +9,7 @@ is ignored silently, and none fails as an ``ImportError``.
 from __future__ import annotations
 
 import os
-import types
-from typing import NoReturn
+from typing import NoReturn, Optional
 
 __all__ = ["FEATURES", "SUBCOMMANDS", "refuse", "refuse_config"]
 
@@ -20,37 +19,41 @@ __all__ = ["FEATURES", "SUBCOMMANDS", "refuse", "refuse_config"]
 
 # feature -> (what it is, its ROADMAP item)
 FEATURES = {
-    "multihost": ("the multi-host device mesh (MKV_COORDINATOR)",
-                  "ROADMAP Queue A item 4"),
-    "storage": ("durable storage ([storage] enabled / --durable, storage/)",
-                "ROADMAP Queue A item 6"),
     "partitions": ("partitioned cluster mode and live rebalancing "
                    "([cluster] partitions > 0, partmap, rebalance)",
-                   "ROADMAP Queue A item 7"),
+                   "ROADMAP Queue A item 4"),
     "bootstrap": ("snapshot bootstrap of a joining node ([bootstrap] enabled)",
-                  "ROADMAP Queue A item 8"),
+                  "ROADMAP Queue A item 5"),
+    "multihost_2d": ("a 2-D (replica, key) mesh across processes "
+                     "(global_key_mesh(replicas > 0), sharded_divergence_2d)",
+                     "ROADMAP Queue A item 7"),
 }
-# CLI subcommands of ``python -m merklekv_tpu`` the port does not run yet.
-SUBCOMMANDS = ("walcheck", "top", "blackbox", "router", "rebalance")
+# CLI subcommands of ``python -m merklekv_tpu`` the port does not run yet,
+# and their ROADMAP items.
+SUBCOMMANDS = {
+    "top": "ROADMAP Queue A item 6",
+    "blackbox": "ROADMAP Queue A item 6",
+    "router": "ROADMAP Queue A item 4",
+    "rebalance": "ROADMAP Queue A item 4",
+}
+# File name under a node's data directory where the JAX package persists a
+# committed partition map (``merklekv_tpu/cluster/partmap.py``).
+_MAP_FILE_NAME = "partmap.spec"
 
 
 def refuse(feature: str) -> NoReturn:
     if feature in SUBCOMMANDS:
         raise NotImplementedError(
             f"the {feature!r} subcommand is not in the torch port yet "
-            "(ROADMAP Queue A item 9)"
+            f"({SUBCOMMANDS[feature]})"
         )
     what, item = FEATURES[feature]
     raise NotImplementedError(f"{what} is not in the torch port yet ({item})")
 
 
 def refuse_config(cfg) -> None:
-    """Raise for the first feature ``cfg`` (or the environment) asks for that
-    the port does not have."""
-    if os.environ.get("MKV_COORDINATOR"):
-        refuse("multihost")
-    if cfg.storage.enabled:
-        refuse("storage")
+    """Raise for the first feature ``cfg`` asks for that the port does not
+    have."""
     if cfg.cluster.partitions > 0:
         refuse("partitions")
     if cfg.bootstrap.enabled:
@@ -66,16 +69,17 @@ def _refusing(feature: str, name: str):
 
 
 parse_map_spec = _refusing("partitions", "parse_map_spec")
-load_map_file = _refusing("partitions", "load_map_file")
 save_map_file = _refusing("partitions", "save_map_file")
 key_in_range = _refusing("partitions", "key_in_range")
 RebalanceManager = _refusing("partitions", "RebalanceManager")
 BootstrapSession = _refusing("bootstrap", "BootstrapSession")
-DurableStore = _refusing("storage", "DurableStore")
-node_data_dir = _refusing("storage", "node_data_dir")
-# The JAX package's ``parallel.multihost`` module: every function refuses.
-multihost = types.SimpleNamespace(**{
-    name: _refusing("multihost", name)
-    for name in ("initialize", "is_initialized", "process_count", "process_index",
-                 "global_key_mesh", "lift_local_shards")
-})
+
+
+def load_map_file(directory: str) -> Optional[tuple]:
+    """A durable node's committed partition map: ``None`` when its data
+    directory holds none (every directory the port writes), else refused —
+    a node the JAX package left in a partition cannot start as a whole
+    keyspace."""
+    if not os.path.exists(os.path.join(directory, _MAP_FILE_NAME)):
+        return None
+    refuse("partitions")

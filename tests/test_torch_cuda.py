@@ -330,3 +330,60 @@ def test_node_sync_runs_its_leaf_pass_on_the_card(dev, monkeypatch):
     finally:
         b.close()
         a.close()
+
+
+def test_snapshot_root_runs_the_kernels_on_the_card(dev, monkeypatch):
+    """``[storage]``'s snapshot root on the node's device: the leaf and
+    level kernels launch, and the root equals the host hashlib chain."""
+    from merklekv_tpu_torch.storage import snapshot as snapmod
+
+    monkeypatch.setenv("MERKLEKV_TORCH_DEVICE", "cuda")
+    items = [(b"inc:%09d" % i, b"v%d" % i) for i in range(5000)]
+    sc.reset_launch_counts()
+    got = snapmod.compute_root_hex(items, engine="auto")
+    assert sc.LAUNCHES["leaf"] == 1 and sc.LAUNCHES["node_level"] >= 1
+    assert got == snapmod.compute_root_hex(items, engine="cpu")
+
+
+def test_two_ranks_sharing_cuda0_over_gloo(dev):
+    """``tests/torch_multihost_worker.py`` as two ranks on ``cuda:0``, each
+    seeing that card alone: NCCL refuses two ranks on one card, so they
+    name gloo."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from merklekv_tpu_torch.merkle.cpu import build_levels
+    from merklekv_tpu_torch.merkle.encoding import leaf_hash
+
+    root_dir = Path(__file__).resolve().parents[1]
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    procs = []
+    try:
+        for rank in range(2):
+            env = dict(os.environ, PYTHONPATH=str(root_dir), MKV_COORDINATOR=f"127.0.0.1:{port}",
+                       MKV_NUM_PROCESSES="2", MKV_PROCESS_ID=str(rank),
+                       MERKLEKV_TORCH_DEVICE="cuda:0", CUDA_VISIBLE_DEVICES="0")
+            procs.append(subprocess.Popen(
+                [sys.executable, str(root_dir / "tests" / "torch_multihost_worker.py"),
+                 "64", "3", "5", "1", "gloo"],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        outs = []
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, f"rank failed:\n{out}\n{err}"
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    keys = [b"mh:%05d" % i for i in range(64)]
+    golden = build_levels([leaf_hash(k, b"val-%d" % i) for i, k in enumerate(keys)])[-1][0].hex()
+    for out in outs:
+        assert f"ROOT {golden}" in out and "COUNTS 0,5,0" in out and "MASKS ok" in out

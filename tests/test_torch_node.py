@@ -7,9 +7,9 @@
 - ``python -m merklekv_tpu_torch --port 0`` prints its readiness line and
   exits 0 on SIGTERM.
 - Refusals: every feature the port does not have yet raises
-  ``NotImplementedError`` naming its ROADMAP item, from a config, a flag, the
-  environment, a subcommand, or a name the JAX node imports from the
-  feature's module; a node whose engine is not ``"cpu"`` fails at start
+  ``NotImplementedError`` naming its ROADMAP item, from a config, a
+  subcommand, or a name the JAX node imports from the feature's module; a
+  node whose engine is not ``"cpu"`` fails at start
   without a GPU unless ``MERKLEKV_TORCH_DEVICE=cpu``.
 - ``PROFILE <secs>`` answers ``PROFILE <dir>`` and writes a torch trace.
 
@@ -164,10 +164,6 @@ def test_python_m_prints_readiness_and_exits_0_on_sigterm(tmp_path):
 
 # ----------------------------------------------------------------- refusals
 
-def _storage(cfg):
-    cfg.storage.enabled = True
-
-
 def _partitions(cfg):
     cfg.cluster.partitions = 2
     cfg.cluster.partition_id = 0
@@ -178,7 +174,7 @@ def _bootstrap(cfg):
 
 
 @pytest.mark.parametrize("setup,item", [
-    (_storage, "item 6"), (_partitions, "item 7"), (_bootstrap, "item 8"),
+    (_partitions, "item 4"), (_bootstrap, "item 5"),
 ])
 def test_unported_config_is_refused_at_start(cpu_env, setup, item):
     cfg = _cfg()
@@ -209,46 +205,52 @@ def test_sharding_on_one_device_serves_from_one_device(cpu_env, field, value):
         run.close()
 
 
-def test_multihost_is_refused(cpu_env, monkeypatch):
-    monkeypatch.setenv("MKV_COORDINATOR", "127.0.0.1:1234")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 4"):
-        start(_cfg(replication=False))
-
-
-def test_durable_flag_and_partitioned_toml_are_refused(cpu_env, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 6"):
-        main(["--durable", "--port", "0"])
+def test_partitioned_toml_is_refused(cpu_env, tmp_path):
     toml = tmp_path / "p.toml"
     toml.write_text('[cluster]\npartitions = 2\npartition_id = 0\n'
                     'partition_map = "0=127.0.0.1:7001;1=127.0.0.1:7002"\n')
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 4"):
         Config.load(str(toml))
+
+
+_SUBCOMMAND_ITEMS = {"top": 6, "blackbox": 6, "router": 4, "rebalance": 4}
 
 
 @pytest.mark.parametrize("sub", unported.SUBCOMMANDS)
 def test_unported_subcommand_is_refused(sub):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 9"):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue A item {_SUBCOMMAND_ITEMS[sub]}\\)"):
         main([sub])
 
 
 @pytest.mark.parametrize("name", [
     "parse_map_spec", "load_map_file", "save_map_file", "key_in_range",
-    "RebalanceManager", "BootstrapSession", "DurableStore", "node_data_dir",
+    "RebalanceManager", "BootstrapSession",
 ])
-def test_names_the_node_imports_from_unported_modules_refuse(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item"):
-        getattr(unported, name)(None)
+def test_names_the_node_imports_from_unported_modules_refuse(name, tmp_path):
+    # load_map_file refuses only a data directory that holds a committed
+    # partition map (the JAX package's partmap.spec); see the next test.
+    (tmp_path / "partmap.spec").write_text("MKVPARTMAP1\n")
+    item = 5 if name == "BootstrapSession" else 4
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A item {item}\\)"):
+        getattr(unported, name)(str(tmp_path))
+
+
+def test_load_map_file_of_a_directory_without_a_map_is_none(tmp_path):
+    """A durable node reads its data directory's partition map at start: a
+    directory the port wrote holds none, and the node starts."""
+    assert unported.load_map_file(str(tmp_path)) is None
 
 
 def test_node_paths_into_unported_modules_refuse(node):
     run, c = node
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 4"):
         run.node.adopt_partition_map(None, 0)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 5"):
         run.node._start_bootstrap("empty-keyspace")
     assert run.server.serving  # the bootstrap refusal came before the read gate
     resp = c._request("REBALANCE STATUS")
-    assert resp.startswith("ERROR") and "item 7" in resp
+    assert resp.startswith("ERROR") and "item 4" in resp
 
 
 def test_node_without_gpu_fails_at_start(monkeypatch):

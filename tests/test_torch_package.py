@@ -26,6 +26,7 @@ import torch
 
 import merklekv_tpu_torch
 from merklekv_tpu_torch import native_bindings
+from merklekv_tpu_torch.__main__ import main as cli_main
 from merklekv_tpu_torch.__main__ import start
 from merklekv_tpu_torch.cluster import sync as t_sync
 from merklekv_tpu_torch.cluster.mirror import DeviceTreeMirror
@@ -35,7 +36,9 @@ from merklekv_tpu_torch.merkle import diff as t_diff
 from merklekv_tpu_torch.merkle import torch_engine as te
 from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState
 from merklekv_tpu_torch.ops import sha256_cuda
-from merklekv_tpu_torch.parallel import ShardedDeviceMerkleState, make_mesh
+from merklekv_tpu_torch.parallel import ShardedDeviceMerkleState, make_mesh, multihost
+from merklekv_tpu_torch.storage import compute_root_hex
+from merklekv_tpu_torch.storage import snapshot as snapmod
 from merklekv_tpu_torch.utils.torchenv import as_tensor, resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -90,7 +93,15 @@ COPIES = {
     "merklekv_tpu_torch.obs.lag": "merklekv_tpu/obs/lag.py",
     "merklekv_tpu_torch.obs.exporter": "merklekv_tpu/obs/exporter.py",
     "merklekv_tpu_torch.obs.catalog": "merklekv_tpu/obs/catalog.py",
+    "merklekv_tpu_torch.storage": "merklekv_tpu/storage/__init__.py",
+    "merklekv_tpu_torch.storage.wal": "merklekv_tpu/storage/wal.py",
+    "merklekv_tpu_torch.storage.snapshot": "merklekv_tpu/storage/snapshot.py",
+    "merklekv_tpu_torch.storage.store": "merklekv_tpu/storage/store.py",
+    "merklekv_tpu_torch.storage.walcheck": "merklekv_tpu/storage/walcheck.py",
+    "merklekv_tpu_torch.testing.faults": "merklekv_tpu/testing/faults.py",
 }
+# Scripts the torch tests spawn; held to the same import rules.
+WORKERS = [ROOT / "tests" / "torch_multihost_worker.py"]
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
@@ -111,7 +122,7 @@ def test_copied_module_docstring_names_its_source(module):
     assert "copy of" in doc and f"``{COPIES[module]}" in doc, (module, doc[:200])
 
 
-@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")), ids=lambda p: p.name)
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + WORKERS, ids=lambda p: p.name)
 def test_no_source_names_jax_or_the_jax_package(path):
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
@@ -126,6 +137,40 @@ def test_no_source_names_jax_or_the_jax_package(path):
             assert top not in ("jax", "jaxlib", "merklekv_tpu"), f"{path}: imports {name}"
 
 
+_BLOCKED_WORKER = r"""
+import runpy, sys
+sys.modules["jax"] = None
+sys.modules["merklekv_tpu"] = None
+path = sys.argv[1]
+sys.argv = sys.argv[1:]
+try:
+    runpy.run_path(path, run_name="__main__")
+except SystemExit as e:
+    assert not e.code, e.code
+assert not any(m == "jax" or m.startswith(("jax.", "merklekv_tpu."))
+               for m in sys.modules if sys.modules[m] is not None)
+"""
+
+
+def test_multihost_worker_runs_without_jax_or_the_jax_package():
+    """The rank script of ``tests/test_torch_multihost.py``, as one rank of
+    a one-process group, in a process where both are blocked."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    env = dict(os.environ, PYTHONPATH=str(ROOT), MKV_COORDINATOR=f"127.0.0.1:{port}",
+               MKV_NUM_PROCESSES="1", MKV_PROCESS_ID="0", MERKLEKV_TORCH_DEVICE="cpu")
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_WORKER, str(WORKERS[0]), "16", "2", "3", "2"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "COUNTS 0,3" in out.stdout and "MASKS ok" in out.stdout, out.stdout
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     if torch.cuda.is_available():
@@ -137,6 +182,18 @@ def _node_config() -> Config:
     cfg = Config()
     cfg.port = 0
     return cfg
+
+
+def _walcheck_without_engine():
+    """``python -m merklekv_tpu_torch walcheck <dir>`` with no ``--engine``
+    over a one-key snapshot: the root is recomputed on the node's device."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        items = [(b"k", b"v")]
+        snapmod.write_snapshot(d, 1, [(b"k", b"v", 1)], [], 0,
+                               compute_root_hex(items, engine="cpu"))
+        return cli_main(["walcheck", d, "--json"])
 
 
 _ENTRY_POINTS = {
@@ -164,6 +221,9 @@ _ENTRY_POINTS = {
     "ShardedDeviceMerkleState.from_items": lambda: ShardedDeviceMerkleState.from_items(
         [(b"k", b"v")], shards=2),
     "build_state_for_rung(2)": lambda: build_state_for_rung(2, [(b"k", b"v")]),
+    "snapshot root on the device": lambda: compute_root_hex([(b"k", b"v")], engine="tpu"),
+    "global_key_mesh": lambda: multihost.global_key_mesh(),
+    "walcheck with no --engine": _walcheck_without_engine,
 }
 
 

@@ -53,7 +53,6 @@ from merklekv_tpu_torch.ops import merkle_paths as mp
 from merklekv_tpu_torch.parallel import (
     ShardedDeviceMerkleState,
     make_mesh,
-    multihost,
     resolve_shard_count,
     sharded_anti_entropy_step,
     sharded_divergence,
@@ -378,13 +377,6 @@ def test_config_sharding_values(tmp_path):
     p.write_text("[device]\nsharding = 3\n")
     with pytest.raises(ValueError, match="power-of-two"):
         Config.load(str(p))
-
-
-def test_multihost_is_still_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 4"):
-        multihost.initialize()
-    with pytest.raises(NotImplementedError, match="item 4"):
-        multihost.global_key_mesh()
 
 
 # ------------------------------------------------------------ diff engine
