@@ -57,10 +57,11 @@ Phases, one line each (an uncaught failure exits nonzero):
               survives and no root query blocks past 300 ms. Prints the
               re-warm times and the longest gap between served roots.
 7. kernels line — printed after phase 10; per kernel: launches on the main
-              path (phases 3 to 6 and 8 to 11, each counted from 0; phase
-              11's as its ranks report them) and, as ``launches_node``,
-              ``launches_sharded``, ``launches_durable`` and
-              ``launches_multihost``, those of phases 8, 9, 10 and 11 alone;
+              path (phases 3 to 6 and 8 to 12, each counted from 0; phase
+              11's as its ranks report them, phase 12's as its node
+              processes do) and, as ``launches_node``, ``launches_sharded``,
+              ``launches_durable``, ``launches_multihost`` and
+              ``launches_partitions``, those of phases 8 to 12 alone;
               its device time (torch.profiler kernel
               time), the plain version's time, and its bound; for the two
               serving kernels the ``[times]`` line also gives a modelled
@@ -152,6 +153,33 @@ Phases, one line each (an uncaught failure exits nonzero):
               its mask rows == injected; median of 5 barrier-synchronised
               steps. The ranks run under a timeout and are killed on any
               failure path.
+12. partitions — partitioned cluster mode at config 4's keyspace (1M keys
+              ``b"inc:%09d"`` / ``b"v%d"``): the port's broker, two
+              partitions of two replicas and one reserve node, each a
+              ``python -m merklekv_tpu_torch --durable`` process (run through
+              runpy, with a SIGUSR1 handler that reports its kernel launch
+              counts) with ``merkle_engine = "auto"`` and its mirror on the
+              card, and ``python -m merklekv_tpu_torch router`` in front.
+              (a) pipelined MSETs per partition by the smart client's map;
+              every replica's HASH == the golden root (``merkle/cpu.py``) of
+              its partition's items; 2000 seeded GETs through the router ==
+              written. (b) ``REBALANCE SPLIT 0 <epoch> <reserve>`` under a
+              steady ``PartitionedClient`` load of 4096-key MSET batches:
+              zero client errors, the map at epoch E+1 with 3 partitions,
+              every replica's root == the golden root under the new map,
+              donor and joiner each launch ``leaf_kernel`` and
+              ``node_level_kernel`` at least twice during the split (the
+              moving range's root and the snapshot root or its
+              verification); prints the split's seconds and the batch p99 in
+              the split window against the steady p99 before it. (c), run
+              right after (a), while its sibling holds no snapshot yet:
+              SIGKILL a replica of partition 1, delete its data directory,
+              restart it with ``[bootstrap] enabled``: it serves its
+              partition's keys after verifying its sibling's snapshot on
+              the card (leaf and level launches before any HASH), then
+              HASH == sibling == golden; prints the times to its readiness
+              line and to serving. (d) ``device.fallbacks`` 0 on every node.
+              Every process is killed at the end, whatever happened.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, the script exits nonzero and prints no result.
@@ -203,6 +231,11 @@ DURABLE_KEYS = NODE_KEYS
 # durable phase waits this long after its last SET before the SIGKILL.
 DURABLE_WAL_DRAIN_S = 0.3
 MULTIHOST_TIMEOUT_S = 600.0
+PART_KEYS = TREE_KEYS
+PART_STEADY_S = 5.0
+PART_SAMPLE = 2000
+PART_BUSY_RETRIES = 240
+PART_PAUSE_S = 0.05
 
 # Bound arithmetic (H100 SXM, NVIDIA data sheet): 3.35 TB/s HBM. Shifts and
 # logic run only on the 64 INT32 lanes of an SM: 132 SMs x 64 x 1.98 GHz
@@ -1972,6 +2005,439 @@ def phase_durable(seed: int, n_keys: int = DURABLE_KEYS, batch: int = BATCH) -> 
             "snap_s": snap_s, "root_s": root_s[1], "snap_bytes": snap_bytes}
 
 
+# ------------------------------------------------------ phase 12: partitions
+
+# Each node process runs ``python -m merklekv_tpu_torch`` through runpy (what
+# ``-m`` does), with a SIGUSR1 handler that writes the process's kernel
+# launch counts to ``$MKV_SMOKE_LAUNCH_DIR/<pid>.json``: the counters live in
+# the node process, and this is how the phase reads them.
+_NODE_BOOT = r"""
+import json, os, runpy, signal, sys
+
+def _dump(signum, frame):
+    mod = sys.modules.get("merklekv_tpu_torch.ops.sha256_cuda")
+    counts = dict(mod.LAUNCHES) if mod is not None else {}
+    path = os.path.join(os.environ["MKV_SMOKE_LAUNCH_DIR"], f"{os.getpid()}.json")
+    with open(path + ".tmp", "w") as f:
+        json.dump(counts, f)
+    os.replace(path + ".tmp", path)
+
+signal.signal(signal.SIGUSR1, _dump)
+sys.argv = ["merklekv_tpu_torch", *sys.argv[1:]]
+runpy.run_module("merklekv_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+class _PartCluster:
+    """Phase 12's processes: the port's broker, two partitions of two durable
+    replicas each, one durable reserve node, and a router. Every process is
+    killed by :meth:`close`, whatever happened before."""
+
+    def __init__(self, tmp: str, root_dir) -> None:
+        import os
+        import uuid
+
+        self.tmp = tmp
+        self.root_dir = root_dir
+        self.launch_dir = os.path.join(tmp, "launches")
+        os.makedirs(self.launch_dir)
+        self.env = dict(os.environ, PYTHONPATH=str(root_dir),
+                        MKV_SMOKE_LAUNCH_DIR=self.launch_dir)
+        self.topic = f"smoke-part-{uuid.uuid4().hex[:8]}"
+        self.procs: dict = {}
+        self.dead_launches: list = []
+        self.broker_port = None
+        self.ports = {}
+
+    def _spawn(self, name: str, args: list, boot: bool):
+        import os
+
+        log_f = open(os.path.join(self.tmp, f"{name}.log"), "a")
+        cmd = [sys.executable, "-c", _NODE_BOOT, *args] if boot else [sys.executable, *args]
+        proc = subprocess.Popen(cmd, cwd=str(self.root_dir), env=self.env,
+                                stdout=subprocess.PIPE, stderr=log_f, text=True)
+        log_f.close()
+        self.procs[name] = proc
+        return proc
+
+    def _ready(self, name: str, prefix: str) -> tuple[int, float]:
+        """Wait for ``name``'s readiness line; (port, seconds)."""
+        t = time.perf_counter()
+        proc = self.procs[name]
+        line = proc.stdout.readline()
+        if not line.startswith(prefix):
+            proc.kill()
+            with open(f"{self.tmp}/{name}.log") as f:
+                raise AssertionError(f"{name}: no readiness line: {line!r} {f.read()[-2000:]}")
+        threading.Thread(target=lambda: [None for _ in proc.stdout], daemon=True).start()
+        port = int(line.split(" listening on ")[1].split()[0].rsplit(":", 1)[1])
+        return port, time.perf_counter() - t
+
+    def start_broker(self) -> None:
+        self._spawn("broker", ["-m", "merklekv_tpu_torch.broker", "--port", "0"], boot=False)
+        self.broker_port, _ = self._ready("broker", "merklekv broker")
+
+    def toml(self, name: str, port: int, spec: str = "", pid: int = -1,
+             boot: bool = False) -> str:
+        import os
+
+        cluster = (f'[cluster]\npartitions = 2\npartition_id = {pid}\n'
+                   f'partition_map = "{spec}"\n' if spec else "")
+        path = os.path.join(self.tmp, f"{name}.toml")
+        with open(path, "w") as f:
+            f.write(f'host = "127.0.0.1"\nport = {port}\n'
+                    f'storage_path = "{self.tmp}/data"\n{cluster}'
+                    '[storage]\nenabled = true\nmerkle_engine = "auto"\n'
+                    f'[replication]\nenabled = {"true" if spec else "false"}\n'
+                    f'mqtt_broker = "127.0.0.1"\nmqtt_port = {self.broker_port}\n'
+                    f'topic_prefix = "{self.topic}"\n'
+                    '[anti_entropy]\nengine = "auto"\ninterval_seconds = 3600\n'
+                    f'[bootstrap]\nenabled = {"true" if boot else "false"}\n')
+        return path
+
+    def start_node(self, name: str, cfg: str) -> None:
+        self._spawn(name, ["--config", cfg, "--durable"], boot=True)
+
+    def launches(self, name: str, timeout: float = 60.0) -> dict:
+        """The node process's kernel launch counts, now."""
+        import os
+        import signal
+
+        proc = self.procs[name]
+        path = os.path.join(self.launch_dir, f"{proc.pid}.json")
+        if os.path.exists(path):
+            os.remove(path)
+        os.kill(proc.pid, signal.SIGUSR1)
+        end = time.monotonic() + timeout
+        while not os.path.exists(path):
+            if time.monotonic() > end or proc.poll() is not None:
+                raise AssertionError(f"{name} did not report its launch counts")
+            time.sleep(0.02)
+        with open(path) as f:
+            got = json.load(f)
+        return {k: int(got.get(k, 0)) for k in ("leaf", "node_level", "node_pairs",
+                                                 "path_rehash", "promotion_chain")}
+
+    def kill9(self, name: str) -> None:
+        """SIGKILL ``name`` after reading its launch counts."""
+        import signal
+
+        self.dead_launches.append(self.launches(name))
+        proc = self.procs.pop(name)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(60)
+
+    def close(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+        for proc in self.procs.values():
+            try:
+                proc.wait(30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(30)
+
+
+def _golden_root(items) -> str:
+    """merkle/cpu.py's root over ``items`` (sorted here)."""
+    from merklekv_tpu_torch.merkle.cpu import build_levels
+    from merklekv_tpu_torch.merkle.encoding import EMPTY_ROOT_HEX, leaf_hash
+
+    items = sorted(items)
+    if not items:
+        return EMPTY_ROOT_HEX
+    return build_levels([leaf_hash(k, v) for k, v in items])[-1][0].hex()
+
+
+def _part_root(port: int, pid: int) -> str:
+    """The node's ``pt=``-addressed, forced HASH (its mirror's root)."""
+    c = _client(port)
+    try:
+        c.partition_id = pid
+        return c.hash(force=True)
+    finally:
+        c.close()
+
+
+def _await_roots(members: dict, want: dict, timeout: float, what: str) -> None:
+    """Wait until every member (name -> (port, pid)) serves ``want[pid]``."""
+    end = time.monotonic() + timeout
+    got = {}
+    while time.monotonic() < end:
+        got = {name: _part_root(port, pid) for name, (port, pid) in members.items()}
+        if all(got[name] == want[pid] for name, (_, pid) in members.items()):
+            return
+        time.sleep(0.25)
+    raise AssertionError(f"{what}: roots {got} != golden {want}")
+
+
+def _p99_ms(lat: list) -> float:
+    s = sorted(lat)
+    return s[min(int(0.99 * (len(s) - 1)), len(s) - 1)] * 1e3 if s else float("nan")
+
+
+def phase_partitions(seed: int, n_keys: int = PART_KEYS, batch: int = BATCH,
+                     steady_s: float = PART_STEADY_S, sample: int = PART_SAMPLE,
+                     pause_s: float = PART_PAUSE_S) -> dict:
+    """12: partitioned cluster mode at config 4's keyspace, every node a
+    ``python -m merklekv_tpu_torch --durable`` process whose mirror, range
+    roots and snapshot roots are on the card. (a) load over pipelined MSETs
+    per partition; every replica's HASH == the golden root of its
+    partition's items; a seeded sample of GETs through the router. (b) a
+    live split of partition 0 to the reserve node under a steady load of
+    4096-key MSET batches: zero client errors, epoch E+1, three partitions'
+    roots golden under the new map, leaf and level launches on the donor and
+    the joiner. (c), run right after (a): SIGKILL a replica of partition 1,
+    delete its data directory, restart it with [bootstrap] enabled: it
+    verifies its sibling's snapshot on the card and serves the sibling's
+    root. (d)
+    ``device.fallbacks`` 0 on every node."""
+    import os
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from merklekv_tpu_torch.client import MerkleKVClient, PartitionedClient
+    from merklekv_tpu_torch.cluster.partmap import partition_of
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed + 12)
+    root_dir = Path(__file__).resolve().parent
+    final = dict(_node_items(n_keys))
+    with tempfile.TemporaryDirectory(prefix="mkv-part-") as tmp:
+        pc_ = _PartCluster(tmp, root_dir)
+        try:
+            pc_.start_broker()
+            socks = []
+            import socket
+
+            for _ in range(5):
+                s = socket.socket()
+                s.bind(("127.0.0.1", 0))
+                socks.append(s)
+            ports = dict(zip(("a0", "b0", "a1", "b1", "r"), (s.getsockname()[1] for s in socks)))
+            for s in socks:
+                s.close()
+            addr = {n: f"127.0.0.1:{p}" for n, p in ports.items()}
+            spec = f"0={addr['a0']},{addr['b0']};1={addr['a1']},{addr['b1']}"
+            pid_of = {"a0": 0, "b0": 0, "a1": 1, "b1": 1}
+            t = time.perf_counter()
+            for name in ("a0", "b0", "a1", "b1", "r"):
+                pc_.start_node(name, pc_.toml(name, ports[name], spec if name != "r" else "",
+                                              pid_of.get(name, -1)))
+            for name in ("a0", "b0", "a1", "b1", "r"):
+                pc_._ready(name, "merklekv_tpu_torch listening on ")
+            ready_s = time.perf_counter() - t
+            pc_._spawn("router", ["-m", "merklekv_tpu_torch", "router", "--port", "0",
+                                  "--seeds", f"{addr['a0']},{addr['a1']}"], boot=False)
+            router_port, _ = pc_._ready("router", "merklekv_tpu_torch router")
+
+            # (a) load: pipelined MSETs per partition, routed by the smart
+            # client's map.
+            # The fence over the moving range answers a retryable BUSY
+            # until the flip; this client's BUSY budget (about 2 minutes at
+            # its 0.5 s backoff cap) waits it out instead of surfacing it.
+            pc = PartitionedClient([addr["a0"]], timeout=120,
+                                   busy_retries=PART_BUSY_RETRIES).connect()
+            if (pc.map.epoch, pc.map.count) != (1, 2):
+                raise AssertionError(f"PARTMAP: epoch {pc.map.epoch}, {pc.map.count} partitions")
+            items = list(final.items())
+            t = time.perf_counter()
+            for pid in (0, 1):
+                mine = [kv for kv in items if pc.map.partition_for_key(kv[0]) == pid]
+                host, port = pc.map.replicas[pid][0].rsplit(":", 1)
+                c = _client(int(port))
+                _tcp_load(c, mine)
+                c.close()
+            load_s = time.perf_counter() - t
+            want = {pid: _golden_root((k, v) for k, v in final.items()
+                                      if partition_of(k, 2) == pid) for pid in (0, 1)}
+            counts = {pid: sum(1 for k in final if partition_of(k, 2) == pid) for pid in (0, 1)}
+            members = {n: (ports[n], pid_of[n]) for n in pid_of}
+            # Replication first (a DBSIZE per replica, no tree work), then
+            # the mirrors: a HASH starts a replica's warm, and a forced one
+            # drains its pump, so polling roots while the siblings still
+            # apply the load would restructure their trees over and over.
+            t = time.perf_counter()
+            end = time.monotonic() + 600
+            while True:
+                sizes = {}
+                for n, (port, pid) in members.items():
+                    c = _client(port)
+                    sizes[n] = c.dbsize()
+                    c.close()
+                if all(sizes[n] == counts[pid] for n, (_, pid) in members.items()):
+                    break
+                if time.monotonic() > end:
+                    raise AssertionError(f"(a) replication never completed: {sizes} != {counts}")
+                time.sleep(0.25)
+            replicate_s = time.perf_counter() - t
+            t = time.perf_counter()
+            _await_roots(members, want, 600, "(a) after the load")
+            converge_s = time.perf_counter() - t
+            keys = list(final)
+            picks = rng.choice(len(keys), size=sample, replace=False)
+            via = MerkleKVClient("127.0.0.1", router_port, timeout=60).connect()
+            for i in picks:
+                k = keys[i]
+                if via.get(k.decode()) != final[k].decode():
+                    raise AssertionError(f"GET {k!r} through the router is not what was written")
+            via.close()
+
+            log(f"[partitions] (a) 5 durable nodes (2 partitions x 2 replicas + 1 reserve) ready "
+                f"in {ready_s:.3f} s; {n_keys} keys over pipelined MSETs per partition in "
+                f"{load_s:.3f} s; siblings replicated them {replicate_s:.3f} s later; every "
+                f"replica's HASH (its mirror warmed by it) == its partition's golden root "
+                f"{converge_s:.3f} s after that; {sample} GETs through the router == written")
+
+            # (c), run before (b): a wiped replica of partition 1 bootstraps
+            # from its sibling. Its sibling holds no snapshot yet (the load
+            # stayed under compact_trigger_bytes), so it writes one of its
+            # current state when asked, and the delta walk after the
+            # install has nothing to repair; a stale snapshot would leave a
+            # delta the bisect walk repairs slowly (ROADMAP Queue C).
+            n1 = counts[1]
+            pc_.kill9("b1")
+            shutil.rmtree(os.path.join(tmp, "data", f"node-{ports['b1']}"))
+            t = time.perf_counter()
+            pc_.start_node("b1", pc_.toml("b1", ports["b1"], spec, 1, boot=True))
+            pc_._ready("b1", "merklekv_tpu_torch listening on ")
+            boot_ready_s = time.perf_counter() - t
+            end = time.monotonic() + 900
+            while True:
+                try:
+                    c = _client(ports["b1"])
+                    size = c.dbsize()
+                    c.close()
+                    if size == n1:
+                        break
+                except Exception:
+                    pass  # the read gate holds until the snapshot verifies
+                if time.monotonic() > end:
+                    raise AssertionError("the bootstrapped replica never served its keyspace")
+                time.sleep(0.05)
+            boot_serve_s = time.perf_counter() - t
+            at_serve = pc_.launches("b1")  # before any HASH warms its mirror
+            if at_serve["leaf"] < 1 or at_serve["node_level"] < 1:
+                raise AssertionError(f"the snapshot was not verified on the card: {at_serve}")
+            _await_roots({"b1": (ports["b1"], 1), "a1": (ports["a1"], 1)}, want, 600,
+                         "(c) after the bootstrap")
+            boot_root_s = time.perf_counter() - t
+            c = _client(ports["b1"])
+            m = c.metrics()
+            c.close()
+            if int(m.get("bootstrap.snapshots_installed", 0)) != 1:
+                raise AssertionError(f"b1 did not install a snapshot: "
+                                     f"{ {k: v for k, v in m.items() if k.startswith('bootstrap')} }")
+            log(f"[partitions] (c) SIGKILL + wiped b1 restarted with [bootstrap]: ready in "
+                f"{boot_ready_s:.3f} s, serving its {n1} keys {boot_serve_s:.3f} s after the "
+                f"restart (launches before any HASH {at_serve}), HASH == sibling == golden "
+                f"{boot_root_s:.3f} s after the restart")
+
+            # (b) the live split under a steady load of 4096-key batches.
+            before = {n: pc_.launches(n) for n in ("a0", "r")}
+            errors: list = []
+            lat: list = []
+            stop = threading.Event()
+            marks = {}
+            load_rng = np.random.default_rng(seed + 1200)
+
+            def storm() -> None:
+                j = 0
+                try:
+                    while not stop.is_set():
+                        idx = load_rng.integers(0, n_keys, size=batch)
+                        pairs = {b"inc:%09d" % i: b"s%d-%d" % (j, i) for i in idx}
+                        t0 = time.perf_counter()
+                        if not pc.mset({k.decode(): v.decode() for k, v in pairs.items()}):
+                            raise AssertionError("MSET answered not OK")
+                        lat.append((time.perf_counter(), time.perf_counter() - t0))
+                        final.update(pairs)
+                        j += 1
+                        time.sleep(pause_s)
+                except BaseException as e:
+                    errors.append(e)
+
+            th = threading.Thread(target=storm, daemon=True)
+            th.start()
+            time.sleep(steady_s)
+            donor = _client(ports["a0"])
+            epoch = donor.partition_map().epoch
+            marks["split"] = time.perf_counter()
+            resp = donor.rebalance(f"SPLIT 0 {epoch} {addr['r']}")
+            if not resp.startswith("OK"):
+                raise AssertionError(f"SPLIT refused: {resp}")
+            state, timeline = "", []
+            end = time.monotonic() + 900
+            while time.monotonic() < end:
+                state = donor.rebalance("STATUS").split(" ")[1]
+                if not timeline or timeline[-1][0] != state:
+                    timeline.append((state, time.perf_counter() - marks["split"]))
+                if state in ("done", "failed", "aborted"):
+                    break
+                time.sleep(0.05)
+            marks["done"] = time.perf_counter()
+            time.sleep(1.0)
+            stop.set()
+            th.join(120)
+            if state != "done":
+                raise AssertionError(f"the split ended in {state!r}")
+            if errors:
+                raise AssertionError(f"client-visible error during the split: {errors[0]!r}")
+            split_s = marks["done"] - marks["split"]
+            steady = [d for t0, d in lat if t0 < marks["split"]]
+            during = [d for t0, d in lat if marks["split"] <= t0 <= marks["done"]]
+            pmap = donor.partition_map()
+            donor.close()
+            if (pmap.epoch, pmap.count) != (epoch + 1, 3):
+                raise AssertionError(f"after the commit: epoch {pmap.epoch}, {pmap.count} partitions")
+            after = {n: pc_.launches(n) for n in ("a0", "r")}
+            split_launches = {n: {k: after[n][k] - before[n][k] for k in after[n]} for n in after}
+            for n, got in split_launches.items():
+                if got["leaf"] < 2 or got["node_level"] < 2:
+                    raise AssertionError(f"{n}'s range and snapshot roots were not hashed on the "
+                                         f"card: {got}")
+            pid_of["r"] = 2
+            members = {n: (ports[n], pid_of[n]) for n in pid_of}
+            want = {pid: _golden_root((k, v) for k, v in final.items()
+                                      if pmap.partition_for_key(k) == pid) for pid in (0, 1, 2)}
+            t = time.perf_counter()
+            _await_roots(members, want, 600, "(b) after the split")
+            settle_s = time.perf_counter() - t
+            moved = sum(1 for k in final if pmap.partition_for_key(k) == 2)
+            phases_s = ", ".join(f"{st} at {at:.3f}" for st, at in timeline)
+            log(f"[partitions] (b) SPLIT 0 -> reserve under {batch}-key MSET batches "
+                f"({pause_s:g} s apart): phase done in {split_s:.3f} s ({phases_s} s), 0 client "
+                f"errors, epoch {pmap.epoch}, {moved} keys moved; batch p99 "
+                f"{_p99_ms(during):.3f} ms in the split window ({len(during)} batches) vs "
+                f"{_p99_ms(steady):.3f} ms steady ({len(steady)} batches); 3 partitions' roots "
+                f"== golden {settle_s:.3f} s after done; launches during the split "
+                f"{split_launches}")
+
+            # (d) no device failure anywhere; then every node's launches.
+            faults = {}
+            for n in ("a0", "b0", "a1", "b1", "r"):
+                c = _client(ports[n])
+                faults[n] = int(c.metrics().get("device.fallbacks", 0))
+                c.close()
+            if any(faults.values()):
+                raise AssertionError(f"device.fallbacks: {faults}")
+            per_node = {n: pc_.launches(n) for n in ("a0", "b0", "a1", "b1", "r")}
+            pc.close()
+        finally:
+            pc_.close()
+    launches = {k: sum(d[k] for d in list(per_node.values()) + pc_.dead_launches)
+                for k in per_node["a0"]}
+    seconds = time.perf_counter() - t_phase
+    log(f"[partitions] (d) device.fallbacks {faults}; launches {launches}; phase "
+        f"{seconds:.1f} s")
+    return {"launches": launches, "seconds": seconds, "split_s": split_s,
+            "split_p99_ms": _p99_ms(during), "steady_p99_ms": _p99_ms(steady),
+            "replicate_s": replicate_s, "converge_s": converge_s,
+            "boot_ready_s": boot_ready_s, "boot_serve_s": boot_serve_s, "load_s": load_s}
+
+
 # --------------------------------------------------- phase 11: multi-process
 
 def multihost_topology() -> tuple[int, str, list, str]:
@@ -2307,8 +2773,9 @@ def main() -> int:
     entry = phase_node_entry(args.seed)
     node = phase_node_sync(args.seed)
     dur = phase_durable(args.seed)
+    part = phase_partitions(args.seed)
     phases = {"rebuild": reb, "serving": srv, "mirror": mir, "drill": drill, "node": node,
-              "sharded": shd, "durable": dur, "multihost": mh}
+              "sharded": shd, "durable": dur, "multihost": mh, "partitions": part}
     launches = {k: sum(ph["launches"][k] for ph in phases.values()) for k in srv["launches"]}
     if min(launches[name] for name in MAIN_PATH_KERNELS) < 1:
         raise AssertionError(f"a kernel was never launched on the main path: {launches}")
@@ -2319,6 +2786,7 @@ def main() -> int:
         k["launches_sharded"] = shd["launches"][k["name"]]
         k["launches_durable"] = dur["launches"][k["name"]]
         k["launches_multihost"] = mh["launches"][k["name"]]
+        k["launches_partitions"] = part["launches"][k["name"]]
     device_profile("rebuild+diff 10M x 8", reb.pop("forward"), 3)
     batch = srv.pop("batch")
     prof = device_profile("serving batch of 4096 + root read", batch, 5)
@@ -2341,7 +2809,11 @@ def main() -> int:
         f"{dur['load_s']:.3f} s, SIGTERM + shutdown snapshot {dur['sigterm_s']:.3f} s, forced "
         f"snapshot {dur['snap_s']:.3f} s (root {dur['root_s']:.3f} s), snapshot "
         f"{dur['snap_bytes']} bytes, walcheck {dur['walcheck_s']:.3f} s, recovery restart "
-        f"{dur['restart_s']:.3f} s, WAL-replay restart {dur['replay_s']:.3f} s; card {card}")
+        f"{dur['restart_s']:.3f} s, WAL-replay restart {dur['replay_s']:.3f} s; partitions 1M: "
+        f"load {part['load_s']:.3f} s, live split {part['split_s']:.3f} s (batch p99 "
+        f"{part['split_p99_ms']:.3f} ms vs {part['steady_p99_ms']:.3f} ms steady), bootstrap "
+        f"ready {part['boot_ready_s']:.3f} s, serving {part['boot_serve_s']:.3f} s, phase "
+        f"{part['seconds']:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

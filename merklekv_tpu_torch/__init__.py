@@ -2,8 +2,7 @@
 
 The JAX package (``merklekv_tpu``) stays the reference; this package mirrors
 its paths (``ops/``, ``merkle/``, ``cluster/``, ``parallel/``, ``storage/``,
-``obs/``, ``native/``) and
-keeps its own copies of the host modules it needs. It imports ``torch`` and
+``requestplane/``, ``obs/``, ``native/``) and keeps its own copies of the host modules it needs. It imports ``torch`` and
 numpy, never ``jax`` and nothing from ``merklekv_tpu``. The SHA-256 kernels
 are hand-written CUDA in ``csrc/``, built with ``nvcc`` at first use; the
 native engine and server are the C++ copy in ``native/``, built with ``g++``

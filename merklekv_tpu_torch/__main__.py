@@ -28,11 +28,18 @@ and ``MKV_PROCESS_ID``) joins the ``torch.distributed`` group of
 ``parallel/multihost.py`` before the first device touch; the node's mirror
 stays on this process's own devices.
 
-Subcommands: ``trace`` and ``walcheck`` are the JAX package's
-(``obs/tracewire.py``, ``storage/walcheck.py``). ``top``, ``blackbox``,
-``router`` and ``rebalance`` raise ``NotImplementedError`` naming their
-ROADMAP item, as do ``[cluster] partitions > 0`` and ``[bootstrap]
-enabled`` (``unported.py``).
+Partitioned mode (``[cluster] partitions > 0``: ``cluster/partmap.py``, live
+rebalancing in ``cluster/rebalance.py``) and snapshot bootstrap
+(``[bootstrap] enabled``: ``cluster/bootstrap.py``) run as in the JAX node;
+their roots are hashed on the node's device by its ``[storage]
+merkle_engine``.
+
+Subcommands: ``trace``, ``walcheck``, ``router`` and ``rebalance`` are the
+JAX package's (``obs/tracewire.py``, ``storage/walcheck.py``,
+``requestplane/router.py``, whose ``--legacy-threads`` runs
+``cluster/router.py``,
+``cluster/rebalance.py``). ``top`` and ``blackbox`` raise
+``NotImplementedError`` naming their ROADMAP item (``unported.py``).
 """
 
 from __future__ import annotations
@@ -123,17 +130,14 @@ def parse_config(argv: list[str]):
 
 
 def start(cfg) -> RunningNode:
-    """Build and start one node for ``cfg``: refuse what the port does not
-    have, join the process group when ``MKV_COORDINATOR`` is set, then the
-    native engine, the durable store's recovery (``[storage] enabled``),
+    """Build and start one node for ``cfg``: join the process group when
+    ``MKV_COORDINATOR`` is set, then the native engine, the durable store's recovery (``[storage] enabled``),
     the server, and the cluster node (whose construction resolves the
     device, and so fails here without a GPU)."""
     from merklekv_tpu_torch.cluster.node import ClusterNode
     from merklekv_tpu_torch.native_bindings import NativeEngine, NativeServer
-    from merklekv_tpu_torch.unported import refuse_config
     from merklekv_tpu_torch.version import __version__
 
-    refuse_config(cfg)
     if os.environ.get("MKV_COORDINATOR"):
         # Before any device touch (docs/DEPLOYMENT.md "Multi-host").
         from merklekv_tpu_torch.parallel import multihost
@@ -206,6 +210,20 @@ def main(argv: list[str] | None = None) -> int:
         from merklekv_tpu_torch.storage.walcheck import main as walcheck_main
 
         return walcheck_main(argv[1:])
+    if argv and argv[0] == "router":
+        # Request plane: one address dumb clients can point at in a
+        # partitioned cluster (docs/PROTOCOL.md "Router semantics");
+        # --legacy-threads runs the thread-per-connection thin router.
+        from merklekv_tpu_torch.requestplane.router import main as router_main
+
+        return router_main(argv[1:])
+    if argv and argv[0] == "rebalance":
+        # Live partition rebalancing: drive an online split (epoch E+1)
+        # against the serving cluster (docs/DEPLOYMENT.md "Online
+        # rebalancing").
+        from merklekv_tpu_torch.cluster.rebalance import main as rebalance_main
+
+        return rebalance_main(argv[1:])
     from merklekv_tpu_torch.unported import SUBCOMMANDS, refuse
 
     if argv and argv[0] in SUBCOMMANDS:

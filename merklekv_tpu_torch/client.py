@@ -789,11 +789,32 @@ class MerkleKVClient:
         return rows, n
 
     def partition_map(self):
-        """The node's versioned partition map (PARTMAP): partitioned
-        cluster mode is not in the torch port yet, so this raises."""
-        from merklekv_tpu_torch.unported import refuse
+        """Fetch the node's versioned partition map (PARTMAP extension
+        verb) as a :class:`~merklekv_tpu_torch.cluster.partmap.PartitionMap`.
+        Raises ProtocolError on an unpartitioned (or old) node — the
+        capability signal that this deployment has no partitions — and
+        :class:`~merklekv_tpu_torch.cluster.partmap.PartitionMapError` (a
+        ValueError) on a truncated/garbled dump: routing must never
+        proceed on a partial map."""
+        from merklekv_tpu_torch.cluster.partmap import PartitionMap
 
-        refuse("partitions")
+        header = _parse_simple(self._request("PARTMAP"))
+        # A garbled header (or missing END) leaves an unknowable number of
+        # body bytes in flight: CLOSE before raising so a caller that
+        # catches the error cannot read leftover rows as later responses
+        # (the oversized-value rule). An ERROR answer above and a
+        # from_wire validation failure below are both stream-synchronized
+        # and keep the connection.
+        try:
+            count = _parse_partmap_header(header)
+        except ProtocolError:
+            self.close()
+            raise
+        rows = [self._read_line() for _ in range(count)]
+        if self._read_line() != "END":
+            self.close()
+            raise ProtocolError("PARTMAP body not closed by END")
+        return PartitionMap.from_wire(header, rows)
 
     def snap_meta(self) -> tuple[int, int, int, str]:
         """Newest shippable snapshot on the peer (SNAPMETA): ``(seq,
@@ -1313,11 +1334,24 @@ class AsyncMerkleKVClient:
         return rows, n
 
     async def partition_map(self):
-        """The node's versioned partition map (PARTMAP): partitioned
-        cluster mode is not in the torch port yet, so this raises."""
-        from merklekv_tpu_torch.unported import refuse
+        """Async PARTMAP — same verify-or-raise semantics as the sync
+        client's ``partition_map``."""
+        from merklekv_tpu_torch.cluster.partmap import PartitionMap
 
-        refuse("partitions")
+        header = _parse_simple(await self._request("PARTMAP"))
+        # Same stream-desync rule as the sync client: close on a garbled
+        # header or missing END, keep the connection on synchronized
+        # failures (ERROR answer, from_wire validation).
+        try:
+            count = _parse_partmap_header(header)
+        except ProtocolError:
+            await self.close()
+            raise
+        rows = [await self._read_line() for _ in range(count)]
+        if (await self._read_line()) != "END":
+            await self.close()
+            raise ProtocolError("PARTMAP body not closed by END")
+        return PartitionMap.from_wire(header, rows)
 
     async def snap_meta(self) -> tuple[int, int, int, str]:
         """Async SNAPMETA — same semantics as the sync client's

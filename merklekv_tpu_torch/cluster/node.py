@@ -21,9 +21,11 @@ port's modules, except:
   node's device; the mirror stays on this process's own devices when the
   process has joined a multi-process group (``parallel/multihost.py``), as
   in the JAX node;
-- features the port does not have yet (partitions and rebalancing,
-  bootstrap) raise ``NotImplementedError`` naming their ROADMAP item
-  (``unported.py``).
+- partitioned mode's live rebalancing (``cluster/rebalance.py``) hashes the
+  moving range's root and verifies the joiner's snapshot on the node's
+  device, and a bootstrapping node (``cluster/bootstrap.py``) verifies its
+  donor's snapshot there, both by the node's ``[storage] merkle_engine``
+  (the reference pins the range root to the host).
 
 Owns the SYNC / REPLICATE cluster-command callback (the native server
 delegates those verbs here), the Replicator lifecycle (REPLICATE
@@ -54,7 +56,6 @@ from merklekv_tpu_torch.config import Config
 from merklekv_tpu_torch.native_bindings import NativeEngine, NativeServer
 from merklekv_tpu_torch.obs import tracewire
 from merklekv_tpu_torch.obs.lag import ConvergenceTracker
-from merklekv_tpu_torch.unported import refuse, refuse_config
 from merklekv_tpu_torch.utils import deviceenv
 
 __all__ = ["ClusterNode"]
@@ -69,7 +70,6 @@ class ClusterNode:
         transport: Optional[Transport] = None,
         storage=None,  # Optional[DurableStore], already recovered
     ) -> None:
-        refuse_config(cfg)
         # The device of the mirror and of anti-entropy's device route, by
         # name (a CPU node never imports torch here). A CUDA device is
         # resolved now, so a node without a GPU fails at start instead of
@@ -128,7 +128,7 @@ class ClusterNode:
         self._rebalance = None
         self._rebalance_mu = threading.Lock()
         if cfg.cluster.partitions > 0:
-            from merklekv_tpu_torch.unported import parse_map_spec
+            from merklekv_tpu_torch.cluster.partmap import parse_map_spec
 
             if not 0 <= cfg.cluster.partition_id < cfg.cluster.partitions:
                 # Config.from_dict validates TOML-loaded configs; a
@@ -156,7 +156,7 @@ class ClusterNode:
             # — wins; this is what makes the epoch flip survive kill -9.
             # It also resurrects a committed JOINER (whose boot config has
             # partitions == 0) straight into its adopted partition.
-            from merklekv_tpu_torch.unported import load_map_file
+            from merklekv_tpu_torch.cluster.partmap import load_map_file
 
             loaded = load_map_file(storage.directory)
             if loaded is not None:
@@ -465,8 +465,12 @@ class ClusterNode:
 
     # -- live rebalancing -----------------------------------------------------
     def _rebalance_manager(self):
-        """Not in the torch port yet: raises (``unported.py``)."""
-        refuse("partitions")
+        with self._rebalance_mu:
+            if self._rebalance is None:
+                from merklekv_tpu_torch.cluster.rebalance import RebalanceManager
+
+                self._rebalance = RebalanceManager(self)
+            return self._rebalance
 
     def _rebalance_state_code(self) -> int:
         with self._rebalance_mu:
@@ -497,7 +501,23 @@ class ClusterNode:
         the new epoch), then swap the in-memory map and the native guard.
         ``pid`` defaults to the current identity (donor/sibling); the
         joiner passes its newly-owned partition."""
-        refuse("partitions")
+        from merklekv_tpu_torch.cluster.partmap import save_map_file
+
+        if pid is None:
+            pid = self._partition_id
+        if self._storage is not None:
+            save_map_file(self._storage.directory, pmap, pid)
+        self._partmap = pmap
+        self._partition_id = pid
+        self._install_partition_guard()
+        from merklekv_tpu_torch.obs.flightrec import record
+
+        record(
+            "map_change",
+            epoch=pmap.epoch,
+            partitions=pmap.count,
+            partition=pid,
+        )
 
     def _boot_foreign_sweep(self) -> None:
         """Quiet-drop every key outside this node's owned cell. Only a
@@ -506,7 +526,7 @@ class ClusterNode:
         pmap, pid = self._partmap, self._partition_id
         if pmap is None or pid is None or not pmap.is_split:
             return
-        from merklekv_tpu_torch.unported import key_in_range
+        from merklekv_tpu_torch.cluster.partmap import key_in_range
 
         base = pmap.hash_base
         root, depth, path = pmap.assignment(pid)
@@ -664,8 +684,50 @@ class ClusterNode:
         return None
 
     def _start_bootstrap(self, reason: str) -> None:
-        """Not in the torch port yet: raises (``unported.py``)."""
-        refuse("bootstrap")
+        from merklekv_tpu_torch.cluster.bootstrap import BootstrapSession
+
+        # Close the read gate first: no client read — and no peer's
+        # anti-entropy walk — sees unverified state from here on.
+        self._server.set_serving(False)
+        with self._rep_mu:
+            rep = self._replicator
+        if rep is not None:
+            # Live replication frames journal but defer apply until the
+            # verified snapshot is installed (no gap in the write stream).
+            rep.hold_applies()
+
+        def on_serving() -> None:
+            self._server.set_serving(True)
+            with self._rep_mu:
+                r = self._replicator
+            if r is not None:
+                r.release_applies()
+
+        self._bootstrap = BootstrapSession(
+            self._engine,
+            self.sync_manager,
+            self._cfg.anti_entropy.peers,
+            self._cfg.bootstrap,
+            merkle_engine=self._cfg.storage.merkle_engine,
+            health=self._health,
+            batch_listener=self._on_bootstrap_applied,
+            on_serving=on_serving,
+        )
+        sess = self._bootstrap
+
+        def run() -> None:
+            try:
+                sess.run(reason)
+            finally:
+                # The periodic loop was deferred for the transfer's
+                # duration; hand over to it now (no-op if disabled or the
+                # node stopped meanwhile).
+                self._start_sync_loop()
+
+        self._bootstrap_thread = threading.Thread(
+            target=run, daemon=True, name="mkv-bootstrap"
+        )
+        self._bootstrap_thread.start()
 
     def _on_bootstrap_applied(self, applied) -> None:
         """Verified snapshot slab installed into the engine: feed the

@@ -818,11 +818,15 @@ class Config:
                     "> 0 (the node serves it via PARTMAP and derives its "
                     "sibling peers from it)"
                 )
-            # Full validation (coverage, addresses) needs the partition
-            # map parser, which the port does not have yet.
-            from merklekv_tpu_torch.unported import refuse
+            # Full validation (coverage, addresses) via the one parser
+            # every routing consumer shares.
+            from merklekv_tpu_torch.cluster.partmap import parse_map_spec
 
-            refuse("partitions")
+            parse_map_spec(
+                cfg.cluster.partition_map,
+                cfg.cluster.partitions,
+                cfg.cluster.map_epoch,
+            )
         cfg.replication.resolve_env()
         return cfg
 

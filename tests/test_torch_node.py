@@ -6,11 +6,14 @@
   tree after writes, deletes and a ``TRUNCATE``.
 - ``python -m merklekv_tpu_torch --port 0`` prints its readiness line and
   exits 0 on SIGTERM.
-- Refusals: every feature the port does not have yet raises
-  ``NotImplementedError`` naming its ROADMAP item, from a config, a
-  subcommand, or a name the JAX node imports from the feature's module; a
-  node whose engine is not ``"cpu"`` fails at start
-  without a GPU unless ``MERKLEKV_TORCH_DEVICE=cpu``.
+- Partitions, rebalancing and bootstrap: a partitioned or bootstrapping
+  config starts, a partitioned TOML loads, ``router`` and ``rebalance`` run,
+  the names the node imports from those modules are the real ones and agree
+  with the JAX package's, and the node's paths into them run.
+- Refusals: the subcommands the port does not have yet (``top``,
+  ``blackbox``) raise ``NotImplementedError`` naming their ROADMAP item; a
+  node whose engine is not ``"cpu"`` fails at start without a GPU unless
+  ``MERKLEKV_TORCH_DEVICE=cpu``.
 - ``PROFILE <secs>`` answers ``PROFILE <dir>`` and writes a torch trace.
 
 Every node here runs with ``MERKLEKV_TORCH_DEVICE=cpu`` unless a test says
@@ -21,6 +24,7 @@ import hashlib
 import json
 import os
 import signal
+import socket
 import struct
 import subprocess
 import sys
@@ -30,9 +34,11 @@ from pathlib import Path
 import pytest
 import torch
 
+from merklekv_tpu.cluster import partmap as jpartmap
 from merklekv_tpu_torch import unported
 from merklekv_tpu_torch.__main__ import main, start
-from merklekv_tpu_torch.client import MerkleKVClient
+from merklekv_tpu_torch.client import MerkleKVClient, MovedError
+from merklekv_tpu_torch.cluster import partmap
 from merklekv_tpu_torch.config import Config
 from merklekv_tpu_torch.merkle.cpu import ref_level_sizes
 from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
@@ -162,25 +168,59 @@ def test_python_m_prints_readiness_and_exits_0_on_sigterm(tmp_path):
     assert not list(tmp_path.iterdir())  # nothing written beside the caller
 
 
-# ----------------------------------------------------------------- refusals
+# ------------------------------------------- partitions, rebalance, bootstrap
+
+def _free_ports(n):
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
 
 def _partitions(cfg):
+    ports = _free_ports(2)
+    cfg.host = "127.0.0.1"
+    cfg.port = ports[0]
     cfg.cluster.partitions = 2
     cfg.cluster.partition_id = 0
+    cfg.cluster.partition_map = f"0=127.0.0.1:{ports[0]};1=127.0.0.1:{ports[1]}"
 
 
 def _bootstrap(cfg):
     cfg.bootstrap.enabled = True
+    cfg.anti_entropy.peers = ["127.0.0.1:1"]  # a donor that never answers
 
 
-@pytest.mark.parametrize("setup,item", [
-    (_partitions, "item 4"), (_bootstrap, "item 5"),
-])
-def test_unported_config_is_refused_at_start(cpu_env, setup, item):
+@pytest.mark.parametrize("setup", [_partitions, _bootstrap], ids=["partitions", "bootstrap"])
+def test_partitioned_or_bootstrapping_config_starts(cpu_env, setup):
+    """A config asking for partitions or bootstrap (refused before those
+    modules were ported) starts and serves: a partitioned node answers
+    PARTMAP and MOVED for the other partition's keys; a bootstrapping node
+    whose donor never answers ends its session, opens its read gate and
+    serves writes."""
     cfg = _cfg()
     setup(cfg)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A {item}"):
-        start(cfg)
+    run = start(cfg)
+    try:
+        with MerkleKVClient("127.0.0.1", run.port, timeout=60) as c:
+            if cfg.cluster.partitions:
+                pmap = c.partition_map()
+                assert (pmap.epoch, pmap.count) == (1, 2)
+                own = next(f"k{i}" for i in range(99) if partmap.partition_of(f"k{i}", 2) == 0)
+                other = next(f"k{i}" for i in range(99) if partmap.partition_of(f"k{i}", 2) == 1)
+                assert c.set(own, "v")
+                with pytest.raises(MovedError):
+                    c.set(other, "v")
+            else:
+                assert run.node._bootstrap is not None
+                assert _wait(lambda: run.node._bootstrap.state in ("live", "failed"))
+                assert run.server.serving
+                assert c.set("b", "1") and c.get("b") == "1"
+    finally:
+        run.close()
 
 
 @pytest.mark.parametrize("field,value", [("sharding", "auto"), ("sharding", "2"),
@@ -205,15 +245,17 @@ def test_sharding_on_one_device_serves_from_one_device(cpu_env, field, value):
         run.close()
 
 
-def test_partitioned_toml_is_refused(cpu_env, tmp_path):
+def test_partitioned_toml_loads(cpu_env, tmp_path):
     toml = tmp_path / "p.toml"
     toml.write_text('[cluster]\npartitions = 2\npartition_id = 0\n'
                     'partition_map = "0=127.0.0.1:7001;1=127.0.0.1:7002"\n')
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 4"):
-        Config.load(str(toml))
+    cfg = Config.load(str(toml))
+    assert (cfg.cluster.partitions, cfg.cluster.partition_id) == (2, 0)
+    pmap = partmap.parse_map_spec(cfg.cluster.partition_map, 2, cfg.cluster.map_epoch)
+    assert pmap.replicas == [["127.0.0.1:7001"], ["127.0.0.1:7002"]]
 
 
-_SUBCOMMAND_ITEMS = {"top": 6, "blackbox": 6, "router": 4, "rebalance": 4}
+_SUBCOMMAND_ITEMS = {"top": 6, "blackbox": 6}
 
 
 @pytest.mark.parametrize("sub", unported.SUBCOMMANDS)
@@ -223,34 +265,172 @@ def test_unported_subcommand_is_refused(sub):
         main([sub])
 
 
-@pytest.mark.parametrize("name", [
-    "parse_map_spec", "load_map_file", "save_map_file", "key_in_range",
-    "RebalanceManager", "BootstrapSession",
-])
-def test_names_the_node_imports_from_unported_modules_refuse(name, tmp_path):
-    # load_map_file refuses only a data directory that holds a committed
-    # partition map (the JAX package's partmap.spec); see the next test.
-    (tmp_path / "partmap.spec").write_text("MKVPARTMAP1\n")
-    item = 5 if name == "BootstrapSession" else 4
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue A item {item}\\)"):
-        getattr(unported, name)(str(tmp_path))
+def _durable_cfg(tmp_path, port, broker, partition_map=None) -> Config:
+    cfg = Config()
+    cfg.host = "127.0.0.1"
+    cfg.port = port
+    cfg.storage.enabled = True
+    cfg.storage_path = str(tmp_path)
+    cfg.replication.mqtt_broker = broker.host
+    cfg.replication.mqtt_port = broker.port
+    cfg.replication.topic_prefix = f"node-{port}"
+    cfg.anti_entropy.interval_seconds = 3600.0
+    if partition_map:
+        cfg.cluster.partitions = 1
+        cfg.cluster.partition_id = 0
+        cfg.cluster.partition_map = partition_map
+        cfg.replication.enabled = True
+    return cfg
 
 
-def test_load_map_file_of_a_directory_without_a_map_is_none(tmp_path):
+def _router_runs(tmp_path):
+    """``router`` fronts a one-partition node for a plain client."""
+    cfg = _cfg(replication=False)
+    _partitions(cfg)
+    cfg.cluster.partitions = 1
+    cfg.cluster.partition_map = f"0=127.0.0.1:{cfg.port}"
+    run = start(cfg)
+    env = dict(os.environ, MERKLEKV_TORCH_DEVICE="cpu", PYTHONPATH=str(ROOT))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "merklekv_tpu_torch", "router", "--port", "0",
+         "--seeds", f"127.0.0.1:{run.port}"],
+        cwd=tmp_path, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("merklekv_tpu_torch router listening on 127.0.0.1:"), line
+        port = int(line.split()[4].rsplit(":", 1)[1])
+        with MerkleKVClient("127.0.0.1", port, timeout=30) as c:
+            assert c.set("r", "1") and c.get("r") == "1"
+        assert run.engine.get(b"r") == b"1"
+    finally:
+        proc.terminate()
+        proc.wait(30)
+        run.close()
+
+
+def _rebalance_runs(tmp_path):
+    """``rebalance`` splits a durable one-partition node's keyspace to a
+    reserve node and exits 0 at phase ``done``, the map at epoch 2."""
+    from merklekv_tpu_torch.cluster.transport import TcpBroker
+
+    broker = TcpBroker()
+    ports = _free_ports(2)
+    donor = start(_durable_cfg(tmp_path, ports[0], broker, f"0=127.0.0.1:{ports[0]}"))
+    reserve = start(_durable_cfg(tmp_path, ports[1], broker))
+    try:
+        with MerkleKVClient("127.0.0.1", ports[0], timeout=30) as c:
+            c.mset({f"s{i:03d}": f"v{i}" for i in range(200)})
+        assert main(["rebalance", "--donor", f"127.0.0.1:{ports[0]}", "--partition", "0",
+                     "--joiner", f"127.0.0.1:{ports[1]}", "--timeout", "120"]) == 0
+        with MerkleKVClient("127.0.0.1", ports[0], timeout=30) as c:
+            pmap = c.partition_map()
+        assert (pmap.epoch, pmap.count) == (2, 2)
+        assert donor.engine.dbsize() + reserve.engine.dbsize() == 200
+        assert reserve.engine.dbsize() > 0
+    finally:
+        reserve.close()
+        donor.close()
+        broker.close()
+
+
+@pytest.mark.parametrize("sub", ["router", "rebalance"])
+def test_router_and_rebalance_subcommands_run(cpu_env, tmp_path, sub):
+    {"router": _router_runs, "rebalance": _rebalance_runs}[sub](tmp_path)
+
+
+def _check_parse_map_spec(tmp_path):
+    spec = "0=a:1,b:2;1=c:3;2=d:4"
+    return partmap.parse_map_spec(spec, 3, 5).wire(), jpartmap.parse_map_spec(spec, 3, 5).wire()
+
+
+def _check_load_map_file(tmp_path):
+    pmap = jpartmap.parse_map_spec("0=a:1;1=b:2", 2, 4).split(0, ["c:3"])
+    jpartmap.save_map_file(str(tmp_path), pmap, 2)
+    got, pid = partmap.load_map_file(str(tmp_path))
+    return (got.wire(), pid), (pmap.wire(), 2)
+
+
+def _check_save_map_file(tmp_path):
+    (tmp_path / "t").mkdir()
+    (tmp_path / "j").mkdir()
+    partmap.save_map_file(str(tmp_path / "t"), partmap.parse_map_spec("0=a:1;1=b:2", 2, 4), 1)
+    jpartmap.save_map_file(str(tmp_path / "j"), jpartmap.parse_map_spec("0=a:1;1=b:2", 2, 4), 1)
+    return ((tmp_path / "t" / "partmap.spec").read_bytes(),
+            (tmp_path / "j" / "partmap.spec").read_bytes())
+
+
+def _check_key_in_range(tmp_path):
+    cells = [(3, 0, 0, 0), (3, 1, 1, 1), (3, 2, 2, 3), (5, 4, 3, 6)]
+    keys = [b"kr:%05d" % i for i in range(2000)]
+    return ([[partmap.key_in_range(k, *c) for c in cells] for k in keys],
+            [[jpartmap.key_in_range(k, *c) for c in cells] for k in keys])
+
+
+def _check_rebalance_manager(tmp_path):
+    from merklekv_tpu.cluster import rebalance as jrebalance
+    from merklekv_tpu_torch.cluster import rebalance
+
+    mgr = rebalance.RebalanceManager(object())
+    assert mgr.state == "idle" and mgr.state_code() == 0
+    return rebalance.STATE_CODES, jrebalance.STATE_CODES
+
+
+def _check_bootstrap_session(tmp_path):
+    from merklekv_tpu.cluster import bootstrap as jbootstrap
+    from merklekv_tpu_torch.cluster import bootstrap
+
+    sess = bootstrap.BootstrapSession(None, None, [], None)
+    assert sess.state == "idle" and sess.state_code() == 0
+    return bootstrap.STATE_CODES, jbootstrap.STATE_CODES
+
+
+_NODE_IMPORTS = {
+    "parse_map_spec": ("cluster.partmap", _check_parse_map_spec),
+    "load_map_file": ("cluster.partmap", _check_load_map_file),
+    "save_map_file": ("cluster.partmap", _check_save_map_file),
+    "key_in_range": ("cluster.partmap", _check_key_in_range),
+    "RebalanceManager": ("cluster.rebalance", _check_rebalance_manager),
+    "BootstrapSession": ("cluster.bootstrap", _check_bootstrap_session),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_NODE_IMPORTS))
+def test_names_the_node_imports_are_the_real_ones_and_agree_with_jax(name, tmp_path):
+    import importlib
+
+    module, check = _NODE_IMPORTS[name]
+    obj = getattr(importlib.import_module(f"merklekv_tpu_torch.{module}"), name)
+    assert obj.__module__ == f"merklekv_tpu_torch.{module}"
+    ours, theirs = check(tmp_path)
+    assert ours == theirs
+
+
+def test_load_map_file_reads_a_jax_written_map_and_none_for_an_empty_directory(tmp_path):
     """A durable node reads its data directory's partition map at start: a
-    directory the port wrote holds none, and the node starts."""
-    assert unported.load_map_file(str(tmp_path)) is None
+    map the JAX package committed loads, and a directory without one gives
+    ``None`` (the node starts as a whole keyspace)."""
+    assert partmap.load_map_file(str(tmp_path)) is None
+    pmap = jpartmap.parse_map_spec("0=a:1;1=b:2", 2, 6)
+    jpartmap.save_map_file(str(tmp_path), pmap, 1)
+    got, pid = partmap.load_map_file(str(tmp_path))
+    assert pid == 1 and got.wire() == pmap.wire() and got.epoch == 6
 
 
-def test_node_paths_into_unported_modules_refuse(node):
+def test_node_paths_run(node):
+    """The node's partition, bootstrap and rebalance paths (refused before
+    those modules were ported) run on a live node."""
     run, c = node
-    with pytest.raises(NotImplementedError, match="item 4"):
-        run.node.adopt_partition_map(None, 0)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        run.node._start_bootstrap("empty-keyspace")
-    assert run.server.serving  # the bootstrap refusal came before the read gate
-    resp = c._request("REBALANCE STATUS")
-    assert resp.startswith("ERROR") and "item 4" in resp
+    assert c._request("REBALANCE STATUS") == "REBALSTATUS idle 0 -"
+    pmap = partmap.parse_map_spec(f"0=127.0.0.1:{run.port};1=127.0.0.1:1", 2, 3)
+    run.node.adopt_partition_map(pmap, 0)
+    assert c.partition_map().wire() == pmap.wire()
+    other = next(f"k{i}" for i in range(99) if partmap.partition_of(f"k{i}", 2) == 1)
+    with pytest.raises(MovedError):
+        c.set(other, "v")
+    run.node._start_bootstrap("empty-keyspace")
+    run.node._bootstrap_thread.join(60)
+    assert run.node._bootstrap.state == "failed"  # no donor to fetch from
+    assert run.server.serving  # the read gate reopened
 
 
 def test_node_without_gpu_fails_at_start(monkeypatch):

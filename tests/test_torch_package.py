@@ -9,7 +9,8 @@
 - The kernel build fails loudly without ``nvcc``; nothing is built when a
   module is imported.
 - A module copied from the JAX package says so in its docstring, naming
-  the file it copies.
+  the file it copies (partitioned mode, rebalancing, bootstrap and the
+  request plane among them).
 """
 
 import ast
@@ -28,6 +29,7 @@ import merklekv_tpu_torch
 from merklekv_tpu_torch import native_bindings
 from merklekv_tpu_torch.__main__ import main as cli_main
 from merklekv_tpu_torch.__main__ import start
+from merklekv_tpu_torch.cluster import rebalance as t_rebalance
 from merklekv_tpu_torch.cluster import sync as t_sync
 from merklekv_tpu_torch.cluster.mirror import DeviceTreeMirror
 from merklekv_tpu_torch.config import Config
@@ -99,6 +101,15 @@ COPIES = {
     "merklekv_tpu_torch.storage.store": "merklekv_tpu/storage/store.py",
     "merklekv_tpu_torch.storage.walcheck": "merklekv_tpu/storage/walcheck.py",
     "merklekv_tpu_torch.testing.faults": "merklekv_tpu/testing/faults.py",
+    "merklekv_tpu_torch.cluster.partmap": "merklekv_tpu/cluster/partmap.py",
+    "merklekv_tpu_torch.cluster.router": "merklekv_tpu/cluster/router.py",
+    "merklekv_tpu_torch.cluster.rebalance": "merklekv_tpu/cluster/rebalance.py",
+    "merklekv_tpu_torch.cluster.bootstrap": "merklekv_tpu/cluster/bootstrap.py",
+    "merklekv_tpu_torch.requestplane": "merklekv_tpu/requestplane/__init__.py",
+    "merklekv_tpu_torch.requestplane.__main__": "merklekv_tpu/requestplane/__main__.py",
+    "merklekv_tpu_torch.requestplane.cache": "merklekv_tpu/requestplane/cache.py",
+    "merklekv_tpu_torch.requestplane.invalidation": "merklekv_tpu/requestplane/invalidation.py",
+    "merklekv_tpu_torch.requestplane.router": "merklekv_tpu/requestplane/router.py",
 }
 # Scripts the torch tests spawn; held to the same import rules.
 WORKERS = [ROOT / "tests" / "torch_multihost_worker.py"]
@@ -178,9 +189,13 @@ def no_cuda(monkeypatch):
     monkeypatch.delenv("MERKLEKV_TORCH_DEVICE", raising=False)
 
 
-def _node_config() -> Config:
+def _node_config(partitioned: bool = False) -> Config:
     cfg = Config()
     cfg.port = 0
+    if partitioned:
+        cfg.cluster.partitions = 1
+        cfg.cluster.partition_id = 0
+        cfg.cluster.partition_map = "0=127.0.0.1:1"
     return cfg
 
 
@@ -224,6 +239,9 @@ _ENTRY_POINTS = {
     "snapshot root on the device": lambda: compute_root_hex([(b"k", b"v")], engine="tpu"),
     "global_key_mesh": lambda: multihost.global_key_mesh(),
     "walcheck with no --engine": _walcheck_without_engine,
+    "partitioned node start": lambda: start(_node_config(partitioned=True)),
+    "rebalance range root on the device": lambda: t_rebalance._range_root_hex(
+        [(b"k", b"v")], "tpu"),
 }
 
 

@@ -205,8 +205,12 @@ def test_torch_and_jax_nodes_replicate_and_sync_to_identical_roots(cluster, monk
 
     for i in range(40):
         (ct if i % 2 else cj).set(f"rep:{i:03d}", f"v{i}")
-    ct.delete("rep:004")
-    cj.delete("rep:007")
+    # Each node deletes a key the OTHER wrote, so the write must have
+    # replicated first: a DEL of a key the node does not hold yet answers
+    # NOT_FOUND and publishes nothing, yet leaves a newer tombstone that
+    # makes the late SET lose by LWW on that node alone.
+    assert _wait(lambda: ct.get("rep:004") == "v4" and cj.get("rep:007") == "v7")
+    assert ct.delete("rep:004") and cj.delete("rep:007")
     assert _wait(lambda: torch_node.engine.snapshot() == jax_node.engine.snapshot())
     assert _wait(lambda: _mirrors_serve(ct, cj), timeout=60)
     items = torch_node.engine.snapshot()
