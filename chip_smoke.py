@@ -55,7 +55,14 @@ Phases, one line each (an uncaught failure exits nonzero):
               after heal fresh writes drain on the card again; then a
               ``scatter`` hang under a 200 ms dispatch deadline: the pump
               survives and no root query blocks past 300 ms. Prints the
-              re-warm times and the longest gap between served roots.
+              re-warm times and the longest gap between served roots. Then
+              the process's flight ring is spilled to a temporary file and
+              ``python -m merklekv_tpu_torch blackbox --json`` reads it: rc
+              0, the drill's failed drains as ``device_rewarm`` events with
+              their classified kinds, and the step-downs in the ring (phase
+              9d's: a mirror on the card ends at rung 1) as
+              ``device_degraded`` anomalies with their ``environment|code``
+              kinds.
 7. kernels line — printed after phase 10; per kernel: launches on the main
               path (phases 3 to 6 and 8 to 12, each counted from 0; phase
               11's as its ranks report them, phase 12's as its node
@@ -80,7 +87,8 @@ Phases, one line each (an uncaught failure exits nonzero):
               ``__main__.start`` (so the launch counters are readable): node
               A, 50 batches of 4096 SETs over TCP each closed by a forced
               HASH (every 10th checked against a ``CpuMerkleState`` kept in
-              step); node B = A's keys with 1% diverged (half new values,
+              step); node B = A's keys with 0.25% diverged (cut from 1%,
+              keeping 1M keys, for the script's time; half new values,
               half deleted, all older than A's writes), a bisect SYNC from
               A with B's replication off, repeated while a cycle past its
               120 s budget left a checkpoint to resume (at most 8 cycles):
@@ -151,8 +159,19 @@ Phases, one line each (an uncaught failure exits nonzero):
               from the seed and keeps its rows, lifts them onto its card
               and runs the step: every rank's root and counts == phase 9a's,
               its mask rows == injected; median of 5 barrier-synchronised
-              steps. The ranks run under a timeout and are killed on any
-              failure path.
+              steps. Then, in the same ranks, the 2-D ``(replica, key)``
+              diff at BASELINE config 5's 64 replicas over 2^24 keys
+              (cuts: keys 100M -> 2^24, the v5e-8 pod -> one H100): each
+              non-reference replica diverges on 1% of the keys, drawn
+              Zipf-skewed over the key index from the seed (every 8th drawn
+              key absent, the others with one digest word changed); each
+              rank makes only its block on its card; meshes with the
+              replica axis across the ranks (reference row broadcast) and
+              with the key axis across them; every rank's counts and mask
+              block == injected; prints each rank's block, make and diff
+              times, the broadcast's bytes and time, and its peak memory.
+              The ranks run under a timeout and are killed on any failure
+              path.
 12. partitions — partitioned cluster mode at config 4's keyspace (1M keys
               ``b"inc:%09d"`` / ``b"v%d"``): the port's broker, two
               partitions of two replicas and one reserve node, each a
@@ -178,8 +197,14 @@ Phases, one line each (an uncaught failure exits nonzero):
               partition's keys after verifying its sibling's snapshot on
               the card (leaf and level launches before any HASH), then
               HASH == sibling == golden; prints the times to its readiness
-              line and to serving. (d) ``device.fallbacks`` 0 on every node.
-              Every process is killed at the end, whatever happened.
+              line and to serving. During the split, ``python -m
+              merklekv_tpu_torch top --nodes <the five> --once --events``
+              exits 0: every node UP, the four serving replicas on BKND 1
+              with their partition in PART, no device event in the pane.
+              (d) ``device.fallbacks`` 0 on every node; after SIGTERM to
+              every node, ``blackbox --json`` over the five flight
+              directories exits 0 with no device anomaly. Every process is
+              killed at the end, whatever happened.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, the script exits nonzero and prints no result.
@@ -217,6 +242,11 @@ NODE_KEYS = TREE_KEYS
 NODE_BATCHES = 50
 NODE_CHECK_EVERY = 10
 NODE_DIVERGED = 0.01
+# Phase 8b's bisect SYNC diverges 0.25% of its 1M keys. Cut from 1%, keeping
+# 1M keys: at 1% the SYNC took 228-305 s (the donor's page cost, ROADMAP
+# Queue C), which with the 2-D step, top and blackbox took the script past
+# 900 s of its 1200 s.
+NODE_SYNC_DIVERGED = 0.0025
 NODE_MSET = 500
 NODE_PIPELINE = 64
 NODE_SYNC_CYCLES = 8
@@ -231,6 +261,17 @@ DURABLE_KEYS = NODE_KEYS
 # durable phase waits this long after its last SET before the SIGKILL.
 DURABLE_WAL_DRAIN_S = 0.3
 MULTIHOST_TIMEOUT_S = 600.0
+# Phase 11's 2-D step: BASELINE config 5 ("64-replica all-pairs diff, 100M
+# keys, Zipf-skewed divergence, v5e-8 pod") at its published replica count.
+# Cuts: keys 100M -> 2^24 (64 x 2^24 digests are 34.4 GB, 35.5 GB with
+# presence, and two ranks' temporaries sit beside them on one 80 GB card);
+# the v5e-8 pod -> one H100.
+DIFF2D_REPLICAS = 64
+DIFF2D_KEYS = 1 << 24
+DIFF2D_DIVERGED = 0.01
+DIFF2D_ZIPF_S = 1.0
+DIFF2D_CUTS = ("keys 100M -> 2^24 (64 x 2^24 digests 34.4 GB, 35.5 GB with presence, beside "
+               "two ranks' temporaries on one 80 GB card); the v5e-8 pod -> one H100")
 PART_KEYS = TREE_KEYS
 PART_STEADY_S = 5.0
 PART_SAMPLE = 2000
@@ -966,6 +1007,63 @@ class _QueryWatch:
         self._t.join(timeout=10)
 
 
+def run_tool(args: list, timeout: float = 120.0) -> tuple[int, str, float]:
+    """``python -m merklekv_tpu_torch <args>`` from the checkout, as a user
+    runs it: (rc, stdout, seconds)."""
+    import os
+    from pathlib import Path
+
+    root_dir = Path(__file__).resolve().parent
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "merklekv_tpu_torch", *args], cwd=str(root_dir),
+                          env=dict(os.environ, PYTHONPATH=str(root_dir)), capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode not in (0, 1):
+        raise AssertionError(f"{args[0]} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.returncode, proc.stdout, time.perf_counter() - t
+
+
+DEVICE_ANOMALIES = ("device_degraded", "device_fallback", "device_corruption")
+
+
+def drill_blackbox(n_rewarms: int) -> dict:
+    """Spill this process's flight ring (the drill's events, and the
+    sharded mirror's step-down and climb of phase 9d before them: a mirror
+    on the card ends at rung 1, so the drill's own failures re-warm it
+    without stepping down) to a temporary file and read it with
+    ``blackbox --json``: it must parse (rc 0), hold the drill's failed
+    drains as ``device_rewarm`` events, each with its classified kind, and
+    show the step-downs (``device_degraded``), each classified with its
+    ``environment|code`` kind."""
+    import os
+    import tempfile
+
+    from merklekv_tpu_torch.obs.flightrec import get_recorder
+
+    with tempfile.TemporaryDirectory(prefix="mkv-drill-") as tmp:
+        path = os.path.join(tmp, "flight.bin")
+        if not get_recorder().dump(path, node="chip_smoke"):
+            raise AssertionError("the flight ring did not spill")
+        rc, out, secs = run_tool(["blackbox", "--json", path])
+    if rc != 0:
+        raise AssertionError(f"blackbox rejected the drill's spill: {out[-2000:]}")
+    report = json.loads(out)
+    rewarms = [e["fields"] for e in report["timeline"] if e["kind"] == "device_rewarm"]
+    kinds = sorted({f.get("kind") for f in rewarms})
+    if len(rewarms) < n_rewarms or not set(kinds) <= {"environment", "code"}:
+        raise AssertionError(f"the spill holds {len(rewarms)} re-warms of kinds {kinds}")
+    steps = [a for a in report["anomalies"] if a["kind"] == "device_degraded"]
+    if not steps or any(not ("(environment @" in a["detail"] or "(code @" in a["detail"])
+                        for a in steps):
+        raise AssertionError(f"no step-down, or one unclassified, in the spill: {steps}")
+    by_kind: dict = {}
+    for a in report["anomalies"]:
+        by_kind[a["kind"]] = by_kind.get(a["kind"], 0) + 1
+    return {"seconds": secs, "events": len(report["timeline"]), "rewarms": len(rewarms),
+            "rewarm_kinds": kinds, "step_downs": [a["detail"] for a in steps],
+            "anomalies": by_kind}
+
+
 def phase_fault_drill(dev, seed: int, n_keys: int = DRILL_KEYS) -> dict:
     """Injected faults at the guard seam on the card: a persistent scatter
     failure invalidates the mirror and re-warms it on the card (its ladder
@@ -1077,6 +1175,7 @@ def phase_fault_drill(dev, seed: int, n_keys: int = DRILL_KEYS) -> dict:
         m.close()
     launches = dict(LAUNCHES)
     delta = {k: v - base.get(k, 0) for k, v in _counters().items()}
+    box = drill_blackbox(DRILL_REWARMS)
     if 0 in watch.levels or delta.get("device.degraded_total", 0):
         raise AssertionError(f"the drill mirror left the card: rungs seen {watch.levels}, "
                              f"degraded {delta.get('device.degraded_total', 0)}")
@@ -1090,7 +1189,11 @@ def phase_fault_drill(dev, seed: int, n_keys: int = DRILL_KEYS) -> dict:
         f"rung 1. Rungs seen {sorted(watch.levels)}, degraded "
         f"{delta.get('device.degraded_total', 0)}, re-warms {delta.get('device.rewarms', 0)}, "
         f"warm errors {delta.get('device.warm_errors', 0)}, served roots {watch.served}; "
-        f"launches {launches}")
+        f"launches {launches}. blackbox --json over the process's spilled flight ring "
+        f"({box['events']} events, {box['seconds']:.3f} s): rc 0, {box['rewarms']} "
+        f"device_rewarm events of kinds {box['rewarm_kinds']}, step-downs {box['step_downs']} "
+        f"(a mirror on the card ends at rung 1: these are phase 9d's), anomalies "
+        f"{box['anomalies']}")
     return {"launches": launches, "rewarm_ms": rewarm_ms, "max_gap_ms": fail_gap * 1e3,
             "hang_call_ms": hang_call * 1e3}
 
@@ -1647,7 +1750,7 @@ def _diverge(rng: np.random.Generator, keys: list, fraction: float, tag: bytes):
 def phase_node_sync(seed: int, n_keys: int = NODE_KEYS, batch: int = BATCH,
                     batches: int = NODE_BATCHES, multi_keys: int = MULTI_KEYS) -> dict:
     """8b: nodes built in-process by ``__main__.start``: serving writes over
-    TCP with a forced HASH after each batch, a bisect SYNC of a 1%-diverged
+    TCP with a forced HASH after each batch, a bisect SYNC of a 0.25%-diverged
     node, and a 3-node multi-sync past the device threshold."""
     import tempfile
 
@@ -1698,7 +1801,7 @@ def phase_node_sync(seed: int, n_keys: int = NODE_KEYS, batch: int = BATCH,
                 raise AssertionError(f"the node's mirror did not run the serving kernels: "
                                      f"{serve_launches}")
 
-            # B: A's content with 1% diverged (half other values, half
+            # B: A's content with 0.25% diverged (half other values, half
             # deleted), then a bisect SYNC from A. B is the stale replica:
             # its writes are older than A's, so the walk's one-way repair
             # and the last-writer-wins install of a resumed cycle's pending
@@ -1708,7 +1811,7 @@ def phase_node_sync(seed: int, n_keys: int = NODE_KEYS, batch: int = BATCH,
             # every repaired insert; it warms on the card afterwards.
             final = a.engine.snapshot()
             keys = [k for k, _ in final]
-            changed, deleted = _diverge(rng, keys, NODE_DIVERGED, b"div")
+            changed, deleted = _diverge(rng, keys, NODE_SYNC_DIVERGED, b"div")
             bnode = _start_node(tmp, "b", replication=False)
             runs.append(bnode)
             _engine_load(bnode.engine, [(k, changed.get(k, v)) for k, v in final], deleted,
@@ -1815,7 +1918,8 @@ def phase_node_sync(seed: int, n_keys: int = NODE_KEYS, batch: int = BATCH,
         f"repaired: {cycles}), last cycle {rep.nodes_compared} nodes compared in {rep.rounds} "
         f"rounds, {rep.bytes_received} B received; A answers a HASHPAGE of 512 rows in "
         f"{page_ms:.2f} ms, an MGET of one key in {mget_ms:.3f} ms; then B's mirror on rung 1 "
-        f"in {warm_b_s:.3f} s; roots of A, B and golden equal; launches {sync_launches}")
+        f"in {warm_b_s:.3f} s; roots of A, B and golden equal; launches {sync_launches}; cut: "
+        f"divergence 1% -> {NODE_SYNC_DIVERGED:.2%}, keeping {n_keys} keys")
     log(f"[node] 3-node sync_multi over {mrep.union_keys} union keys (device threshold "
         f"{_DEVICE_THRESHOLD}): {multi_s:.3f} s, per-peer divergence "
         f"{sorted(mrep.per_peer_divergent.values())} == injected; launches {multi_launches}; "
@@ -2172,6 +2276,31 @@ def _await_roots(members: dict, want: dict, timeout: float, what: str) -> None:
     raise AssertionError(f"{what}: roots {got} != golden {want}")
 
 
+def check_top(out: str, serving: list, reserve: str) -> dict:
+    """``top --once --events`` output over the cluster: every node UP, the
+    serving replicas on BKND 1 with their partition in PART, no
+    ``device_degraded`` event in the events pane. Returns each node's row
+    (column -> value)."""
+    lines = out.splitlines()
+    header = lines[0].split()
+    rows = {}
+    for ln in lines[2:]:
+        if not ln.strip() or ln.startswith("-- "):
+            break
+        rows[ln.split()[0]] = dict(zip(header, ln.split()))
+    for addr in serving + [reserve]:
+        if rows.get(addr, {}).get("STATUS") != "UP":
+            raise AssertionError(f"top: {addr} is not UP: {out[-3000:]}")
+    for addr in serving:
+        if rows[addr]["BKND"] != "1" or rows[addr]["PART"] not in ("0", "1"):
+            raise AssertionError(f"top: {addr} BKND {rows[addr]['BKND']}, PART "
+                                 f"{rows[addr]['PART']}: {out[-3000:]}")
+    pane = out[out.index("-- flight events"):].splitlines()[2:]
+    if any(len(ln.split()) > 2 and ln.split()[2] in DEVICE_ANOMALIES for ln in pane):
+        raise AssertionError(f"top shows a device event: {pane}")
+    return rows
+
+
 def _p99_ms(lat: list) -> float:
     s = sorted(lat)
     return s[min(int(0.99 * (len(s) - 1)), len(s) - 1)] * 1e3 if s else float("nan")
@@ -2368,6 +2497,13 @@ def phase_partitions(seed: int, n_keys: int = PART_KEYS, batch: int = BATCH,
             resp = donor.rebalance(f"SPLIT 0 {epoch} {addr['r']}")
             if not resp.startswith("OK"):
                 raise AssertionError(f"SPLIT refused: {resp}")
+            # top over the five nodes while the split runs, as a user runs it.
+            top_box: dict = {}
+            top_th = threading.Thread(target=lambda: top_box.update(zip(
+                ("rc", "out", "s"), run_tool(["top", "--nodes", ",".join(addr.values()),
+                                              "--once", "--events", "--interval", "0.5",
+                                              "--timeout", "10"]))), daemon=True)
+            top_th.start()
             state, timeline = "", []
             end = time.monotonic() + 900
             while time.monotonic() < end:
@@ -2381,6 +2517,10 @@ def phase_partitions(seed: int, n_keys: int = PART_KEYS, batch: int = BATCH,
             time.sleep(1.0)
             stop.set()
             th.join(120)
+            top_th.join(120)
+            if top_box.get("rc") != 0:
+                raise AssertionError(f"top exited {top_box.get('rc')}: {top_box.get('out')}")
+            top_rows = check_top(top_box["out"], [addr[n] for n in pid_of], addr["r"])
             if state != "done":
                 raise AssertionError(f"the split ended in {state!r}")
             if errors:
@@ -2425,17 +2565,36 @@ def phase_partitions(seed: int, n_keys: int = PART_KEYS, batch: int = BATCH,
                 raise AssertionError(f"device.fallbacks: {faults}")
             per_node = {n: pc_.launches(n) for n in ("a0", "b0", "a1", "b1", "r")}
             pc.close()
+            # Every node stops (SIGTERM: its final flight spill), then
+            # blackbox reads the five flight directories.
+            pc_.close()
+            rc, out, box_s = run_tool(["blackbox", "--json"] + [
+                os.path.join(tmp, "data", f"node-{ports[n]}", "flight")
+                for n in ("a0", "b0", "a1", "b1", "r")])
+            box = json.loads(out)
+            box_kinds: dict = {}
+            for a in box["anomalies"]:
+                box_kinds[a["kind"]] = box_kinds.get(a["kind"], 0) + 1
+            if rc != 0 or len(box["spills"]) != 5 or set(box_kinds) & set(DEVICE_ANOMALIES):
+                raise AssertionError(f"blackbox over the cluster: rc {rc}, "
+                                     f"{len(box['spills'])} spills, anomalies {box_kinds}")
         finally:
             pc_.close()
     launches = {k: sum(d[k] for d in list(per_node.values()) + pc_.dead_launches)
                 for k in per_node["a0"]}
     seconds = time.perf_counter() - t_phase
-    log(f"[partitions] (d) device.fallbacks {faults}; launches {launches}; phase "
+    log(f"[partitions] (d) device.fallbacks {faults}; launches {launches}. During the split "
+        f"top --once --events exited 0 in {top_box['s']:.3f} s: every node UP, (BKND, PART, "
+        f"STALE) {[(r['BKND'], r['PART'], r['STALE']) for r in top_rows.values()]}, no device "
+        f"event. After SIGTERM blackbox --json over the five flight directories exited 0 in "
+        f"{box_s:.3f} s: {len(box['timeline'])} events, anomalies {box_kinds} (none of "
+        f"{list(DEVICE_ANOMALIES)}), partition scope {box['partition_scope']!r}; phase "
         f"{seconds:.1f} s")
     return {"launches": launches, "seconds": seconds, "split_s": split_s,
             "split_p99_ms": _p99_ms(during), "steady_p99_ms": _p99_ms(steady),
             "replicate_s": replicate_s, "converge_s": converge_s,
-            "boot_ready_s": boot_ready_s, "boot_serve_s": boot_serve_s, "load_s": load_s}
+            "boot_ready_s": boot_ready_s, "boot_serve_s": boot_serve_s, "load_s": load_s,
+            "top_s": top_box["s"], "blackbox_s": box_s}
 
 
 # --------------------------------------------------- phase 11: multi-process
@@ -2452,6 +2611,100 @@ def multihost_topology() -> tuple[int, str, list, str]:
         return world, "nccl", [str(i) for i in range(world)], \
             f"{world} ranks, one per card, over NCCL"
     return 2, "gloo", ["0", "0"], "2 ranks sharing cuda:0 over gloo"
+
+
+def diff2d_block(dev, seed: int, rows: tuple, cols: tuple, n_keys: int = DIFF2D_KEYS):
+    """One rank's block of phase 11's 2-D inputs, made on the card: the
+    reference row (a seeded ``torch.Generator``, the same on every rank) of
+    keys ``cols[0]:cols[1]``, repeated for replicas ``rows[0]:rows[1]``; in
+    each non-reference replica 1% of the keys diverge. Which keys: a draw
+    without repeats, Zipf-skewed over the key index (weights 1/(i+1),
+    Gumbel top-k), seeded by (seed, replica), so every rank draws the same
+    set for a replica; every 8th drawn key loses its presence, the others
+    get one digest word changed. Returns (digests, present, expected masks)
+    of the block; nothing of the other ranks' rows is made."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ref = torch.randint(-(2**31), 2**31 - 1, (n_keys, 8), dtype=torch.int32,
+                        device=dev, generator=gen)
+    (r0, r1), (c0, c1) = rows, cols
+    digests = ref[c0:c1].unsqueeze(0).repeat(r1 - r0, 1, 1)
+    del ref
+    present = torch.ones((r1 - r0, c1 - c0), dtype=torch.bool, device=dev)
+    expected = torch.zeros_like(present)
+    k = int(n_keys * DIFF2D_DIVERGED)
+    log_w = -DIFF2D_ZIPF_S * torch.log1p(torch.arange(n_keys, device=dev, dtype=torch.float64))
+    for rep in range(max(r0, 1), r1):
+        g = torch.Generator(device=dev).manual_seed(seed * 1_000_003 + rep)
+        u = torch.rand(n_keys, device=dev, dtype=torch.float64, generator=g)
+        pos = torch.topk(log_w - torch.log(-torch.log(u)), k).indices
+        gone = pos[::8]
+        pos, gone = (x[(x >= c0) & (x < c1)] - c0 for x in (pos, gone))
+        digests[rep - r0, pos, rep % 8] ^= 0x5A5A5A5A
+        present[rep - r0, gone] = False
+        expected[rep - r0, pos] = True
+    return digests, present, expected
+
+
+def rank_diff2d(seed: int, replicas: int) -> dict:
+    """Phase 11's 2-D step in one rank: the ``(replica, key)`` mesh of
+    ``replicas`` replica shards over every rank's card, this rank's block
+    made on its card and lifted, ``sharded_divergence_2d`` timed between
+    barriers, the reference row's ``broadcast`` counted (bytes, time);
+    the counts against the injected ones and the mask block against the
+    injected block."""
+    import torch
+    import torch.distributed as dist
+
+    from merklekv_tpu_torch.parallel import multihost
+    from merklekv_tpu_torch.parallel.sharded_merkle import sharded_divergence_2d
+
+    mesh = multihost.global_key_mesh(replicas)
+    dev = mesh.devices.flat[0]
+    rb = DIFF2D_REPLICAS // mesh.global_shape["replica"]
+    nb = DIFF2D_KEYS // mesh.global_shape["key"]
+    r0, c0 = mesh.origin[0] * rb, mesh.origin[1] * nb
+    rows, cols = (r0, r0 + mesh.shape["replica"] * rb), (c0, c0 + mesh.shape["key"] * nb)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    dig, pres, exp = diff2d_block(dev, seed, rows, cols, DIFF2D_KEYS)
+    blocks = multihost.lift_local_blocks(mesh, dig, pres)
+    del dig, pres
+    sync()
+    gen_s = time.perf_counter() - t
+    moved = []
+    real = dist.broadcast
+
+    def counted(tensor, src, group=None, **kw):
+        sync()
+        t0 = time.perf_counter()
+        out = real(tensor, src, group=group, **kw)
+        sync()
+        moved.append((tensor.numel() * tensor.element_size(), time.perf_counter() - t0))
+        return out
+
+    dist.broadcast = counted
+    try:
+        sync()
+        dist.barrier()
+        t = time.perf_counter()
+        masks, counts = sharded_divergence_2d(mesh, *blocks)
+        sync()
+        dist.barrier()
+        diff_s = time.perf_counter() - t
+    finally:
+        dist.broadcast = real
+    k = int(DIFF2D_KEYS * DIFF2D_DIVERGED)
+    out = {"replicas": replicas, "mesh": [mesh.global_shape["replica"], mesh.global_shape["key"]],
+           "rows": list(rows), "cols": list(cols),
+           "counts_ok": counts.tolist() == [0] + [k] * (DIFF2D_REPLICAS - 1),
+           "masks_ok": bool(torch.equal(masks, exp)), "gen_s": gen_s, "diff_ms": diff_s * 1e3,
+           "bcast_bytes": sum(b for b, _ in moved), "bcast_ms": sum(x for _, x in moved) * 1e3,
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    del blocks, masks, exp, counts
+    torch.cuda.empty_cache()
+    return out
 
 
 def rank_main(backend: str, seed: int, n_keys: int) -> int:
@@ -2501,11 +2754,17 @@ def rank_main(backend: str, seed: int, n_keys: int) -> int:
         sync()
         dist.barrier()
         times.append(time.perf_counter() - t)
+    del lifted
+    torch.cuda.empty_cache()
+    # The 2-D step in the same ranks: the replica axis across the ranks,
+    # then the key axis.
+    diff2d = [rank_diff2d(seed, replicas) for replicas in (world, 1)]
     print(json.dumps({
         "rank": rank, "world": world, "rows": [lo, hi], "card": torch.cuda.get_device_name(0),
         "root": digest_to_bytes(words_np(root)).hex(), "counts": counts.tolist(),
         "masks_ok": masks_ok, "launches": launches, "setup_s": setup_s,
         "median_ms": statistics.median(times) * 1e3, "times_ms": [x * 1e3 for x in times],
+        "diff2d": diff2d,
     }), flush=True)
     dist.destroy_process_group()
     return 0
@@ -2577,6 +2836,21 @@ def phase_multihost(seed: int, shd: dict, timeout: float = MULTIHOST_TIMEOUT_S) 
                                  f"{want_root[:16]}, {want_counts}")
         if out["launches"]["leaf"] != 1 or out["launches"]["node_level"] < 1:
             raise AssertionError(f"rank {out['rank']} did not hash on its card: {out['launches']}")
+    for i, step in enumerate(outs[0]["diff2d"]):
+        runs = [o["diff2d"][i] for o in outs]
+        bad = [o["rank"] for o, d in zip(outs, runs) if not (d["counts_ok"] and d["masks_ok"])]
+        if bad:
+            raise AssertionError(f"2-D diff over a {step['mesh']} mesh: ranks {bad} differ from "
+                                 f"the injected counts or masks: {runs}")
+        log(f"[multihost] 2-D diff, config 5 at {DIFF2D_REPLICAS} replicas x {DIFF2D_KEYS} keys "
+            f"({DIFF2D_DIVERGED:.0%} Zipf-skewed divergence per replica), {where}, (replica, key) "
+            f"mesh {step['mesh'][0]} x {step['mesh'][1]}: every rank's counts == injected and its "
+            f"mask block == injected; per rank (rows, keys, make s, diff ms, reference-row "
+            f"broadcast bytes / ms, peak GB): "
+            + "; ".join(f"{d['rows']} {d['cols']} {d['gen_s']:.3f} {d['diff_ms']:.3f} "
+                        f"{d['bcast_bytes']} / {d['bcast_ms']:.3f} {d['peak_gb']:.2f}"
+                        for d in runs)
+            + f"; cuts: {DIFF2D_CUTS}")
     launches = {k: sum(o["launches"][k] for o in outs) for k in outs[0]["launches"]}
     med = outs[0]["median_ms"]
     setups = ", ".join(f"{o['setup_s']:.2f}" for o in outs)
@@ -2585,7 +2859,9 @@ def phase_multihost(seed: int, shd: dict, timeout: float = MULTIHOST_TIMEOUT_S) 
         f"median of 5 (barrier-synchronised) {med:.3f} ms vs the single-process sharded step "
         f"{shd['step_pd_ms']:.3f} ms (per-device form) and single device "
         f"{shd['single_ms']:.3f} ms; phase {wall_s:.1f} s; launches {launches}")
-    return {"launches": launches, "step_ms": med, "where": where, "seconds": wall_s}
+    return {"launches": launches, "step_ms": med, "where": where, "seconds": wall_s,
+            "diff2d_ms": [max(o["diff2d"][i]["diff_ms"] for o in outs)
+                          for i in range(len(outs[0]["diff2d"]))]}
 
 
 def path_work(pos: np.ndarray, depth: int) -> dict:
@@ -2751,6 +3027,7 @@ def main() -> int:
 
     if args.rank_of:
         return rank_main(args.rank_of, args.seed, args.keys)
+    t_script = time.perf_counter()
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
     card = gpu_line()
@@ -2804,7 +3081,9 @@ def main() -> int:
         f"3-node sync_multi {node['multi_s']:.3f} s; sharded ({shd['where']}): step "
         f"{shd['step_ms']:.3f} ms, per-device form {shd['step_pd_ms']:.3f} ms, vs single device "
         f"{shd['single_ms']:.3f} ms, serving {shd['writes_per_s']:.0f} writes/s, phase "
-        f"{shd['seconds']:.1f} s; multihost ({mh['where']}): step {mh['step_ms']:.3f} ms, phase "
+        f"{shd['seconds']:.1f} s; multihost ({mh['where']}): step {mh['step_ms']:.3f} ms, 2-D "
+        f"diff {DIFF2D_REPLICAS} x {DIFF2D_KEYS} (replica axis across ranks, key axis across "
+        f"ranks) {', '.join(f'{x:.3f}' for x in mh['diff2d_ms'])} ms, phase "
         f"{mh['seconds']:.1f} s; durable 1M: ready {dur['ready_s']:.3f} s, load "
         f"{dur['load_s']:.3f} s, SIGTERM + shutdown snapshot {dur['sigterm_s']:.3f} s, forced "
         f"snapshot {dur['snap_s']:.3f} s (root {dur['root_s']:.3f} s), snapshot "
@@ -2812,8 +3091,9 @@ def main() -> int:
         f"{dur['restart_s']:.3f} s, WAL-replay restart {dur['replay_s']:.3f} s; partitions 1M: "
         f"load {part['load_s']:.3f} s, live split {part['split_s']:.3f} s (batch p99 "
         f"{part['split_p99_ms']:.3f} ms vs {part['steady_p99_ms']:.3f} ms steady), bootstrap "
-        f"ready {part['boot_ready_s']:.3f} s, serving {part['boot_serve_s']:.3f} s, phase "
-        f"{part['seconds']:.1f} s; card {card}")
+        f"ready {part['boot_ready_s']:.3f} s, serving {part['boot_serve_s']:.3f} s, top "
+        f"{part['top_s']:.3f} s, blackbox {part['blackbox_s']:.3f} s, phase "
+        f"{part['seconds']:.1f} s; script {time.perf_counter() - t_script:.1f} s; card {card}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

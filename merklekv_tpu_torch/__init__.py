@@ -6,6 +6,6 @@ its paths (``ops/``, ``merkle/``, ``cluster/``, ``parallel/``, ``storage/``,
 numpy, never ``jax`` and nothing from ``merklekv_tpu``. The SHA-256 kernels
 are hand-written CUDA in ``csrc/``, built with ``nvcc`` at first use; the
 native engine and server are the C++ copy in ``native/``, built with ``g++``
-at first use. ``python -m merklekv_tpu_torch`` starts a node (``__main__``);
-what it does not do yet raises ``NotImplementedError`` (``unported.py``).
+at first use. ``python -m merklekv_tpu_torch`` starts a node or runs one of
+the JAX package's subcommands (``__main__``).
 """

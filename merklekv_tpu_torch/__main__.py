@@ -34,12 +34,11 @@ rebalancing in ``cluster/rebalance.py``) and snapshot bootstrap
 their roots are hashed on the node's device by its ``[storage]
 merkle_engine``.
 
-Subcommands: ``trace``, ``walcheck``, ``router`` and ``rebalance`` are the
-JAX package's (``obs/tracewire.py``, ``storage/walcheck.py``,
-``requestplane/router.py``, whose ``--legacy-threads`` runs
-``cluster/router.py``,
-``cluster/rebalance.py``). ``top`` and ``blackbox`` raise
-``NotImplementedError`` naming their ROADMAP item (``unported.py``).
+Subcommands, the JAX package's: ``trace`` (``obs/tracewire.py``),
+``walcheck`` (``storage/walcheck.py``), ``top`` (``obs/top.py``),
+``blackbox`` (``obs/blackbox.py``), ``router`` (``requestplane/router.py``,
+whose ``--legacy-threads`` runs ``cluster/router.py``) and ``rebalance``
+(``cluster/rebalance.py``).
 """
 
 from __future__ import annotations
@@ -210,6 +209,19 @@ def main(argv: list[str] | None = None) -> int:
         from merklekv_tpu_torch.storage.walcheck import main as walcheck_main
 
         return walcheck_main(argv[1:])
+    if argv and argv[0] == "top":
+        # Live cluster dashboard: polls STATS/METRICS/PEERS over a node
+        # list and renders rates (docs/OBSERVABILITY.md "top").
+        from merklekv_tpu_torch.obs.top import main as top_main
+
+        return top_main(argv[1:])
+    if argv and argv[0] == "blackbox":
+        # Offline post-mortem: merge flight-recorder spills from one or
+        # more nodes into an ordered cluster timeline + anomaly report
+        # (docs/OBSERVABILITY.md "Post-mortem forensics").
+        from merklekv_tpu_torch.obs.blackbox import main as blackbox_main
+
+        return blackbox_main(argv[1:])
     if argv and argv[0] == "router":
         # Request plane: one address dumb clients can point at in a
         # partitioned cluster (docs/PROTOCOL.md "Router semantics");
@@ -224,11 +236,6 @@ def main(argv: list[str] | None = None) -> int:
         from merklekv_tpu_torch.cluster.rebalance import main as rebalance_main
 
         return rebalance_main(argv[1:])
-    from merklekv_tpu_torch.unported import SUBCOMMANDS, refuse
-
-    if argv and argv[0] in SUBCOMMANDS:
-        refuse(argv[0])
-
     cfg = parse_config(argv)
     run = start(cfg)
     stop = {"flag": False}

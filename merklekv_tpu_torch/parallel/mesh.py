@@ -30,13 +30,24 @@ class Mesh:
     """A numpy object array of ``torch.device`` plus its axis names.
 
     A mesh that spans processes (``parallel/multihost.py::global_key_mesh``)
-    holds only this process's devices; ``process_index``, ``process_count``
-    and ``group`` (a ``torch.distributed`` process group) place them in the
-    global ``key`` axis, process 0's devices first. The sharded functions
-    then combine their per-device results across the group."""
+    holds only this process's devices, a rectangular block of the global
+    device grid: ``origin`` is the global index of its first device along
+    each axis and ``global_shape`` the global grid's size per axis (the
+    global grid lists process 0's devices first, row-major, as the JAX
+    ``make_mesh`` reshapes ``jax.devices()``). ``process_index``,
+    ``process_count`` and ``group`` (a ``torch.distributed`` process group)
+    say who holds the rest. ``replica_group`` is set on a 2-D mesh whose
+    ``replica`` axis crosses processes: ``(group, src)``, the group of the
+    processes that hold this process's key columns and the global rank of
+    the one among them that holds replica shard 0 (``None`` when this
+    process holds every replica shard of its columns). The sharded
+    functions combine their per-device results across these groups."""
 
     def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
-                 process_index: int = 0, process_count: int = 1, group=None) -> None:
+                 process_index: int = 0, process_count: int = 1, group=None,
+                 origin: Optional[Sequence[int]] = None,
+                 global_shape: Optional[Sequence[int]] = None,
+                 replica_group=None) -> None:
         if devices.ndim != len(axis_names):
             raise ValueError(f"{devices.ndim}-d device array for axes {tuple(axis_names)}")
         self.devices = devices
@@ -44,6 +55,10 @@ class Mesh:
         self.process_index = process_index
         self.process_count = process_count
         self.group = group
+        self.origin = tuple(origin) if origin is not None else (0,) * devices.ndim
+        sizes = tuple(global_shape) if global_shape is not None else devices.shape
+        self.global_shape = dict(zip(self.axis_names, sizes))
+        self.replica_group = replica_group
 
     @property
     def spans_processes(self) -> bool:
@@ -51,6 +66,8 @@ class Mesh:
 
     @property
     def shape(self) -> dict[str, int]:
+        """This process's part of the mesh, per axis (``global_shape`` for
+        the whole)."""
         return dict(zip(self.axis_names, self.devices.shape))
 
     def axis_devices(self, axis: str) -> list[torch.device]:

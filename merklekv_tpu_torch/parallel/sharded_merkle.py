@@ -35,7 +35,10 @@ is exactly the concatenation — gloo documents CUDA tensors only for
 ``broadcast`` and ``all_reduce``, so there is no ``all_gather`` here), and
 the per-replica counts by an ``all_reduce`` sum. The root and the counts are
 then the same on every rank; the masks stay this rank's rows (the JAX
-docstring's "each process addressing only its own rows").
+docstring's "each process addressing only its own rows"). The 2-D diff
+across processes (:func:`sharded_divergence_2d`) moves replica 0's rows to
+the ranks of their key columns by a ``broadcast`` and sums the counts by
+the same zero-filled ``all_reduce``.
 
 The serving-tree helpers at the end keep the padded tree of capacity
 C = D * L as D lists of shard-local levels (sizes L .. 1) plus the top tree
@@ -60,7 +63,6 @@ from merklekv_tpu_torch.ops.dispatch import (
     rehash_paths,
 )
 from merklekv_tpu_torch.parallel.mesh import Mesh
-from merklekv_tpu_torch.unported import refuse
 from merklekv_tpu_torch.utils.torchenv import as_tensor
 
 __all__ = [
@@ -232,6 +234,39 @@ def sharded_divergence(
     return _gather(masks, devs[0], dim=1), counts
 
 
+def _grid(mesh: Mesh, replica_axis: str, key_axis: str) -> np.ndarray:
+    """This process's devices as a [replica, key] array (index 0 of any
+    other axis)."""
+    names = mesh.axis_names
+    grid = np.moveaxis(mesh.devices, (names.index(replica_axis), names.index(key_axis)), (0, 1))
+    return grid.reshape(grid.shape[0], grid.shape[1], -1)[:, :, 0]
+
+
+def grid_blocks(x, grid: np.ndarray, dtype: torch.dtype) -> list[list[torch.Tensor]]:
+    """[R, N, ...] split into ``grid``'s [R / rows, N / columns, ...]
+    blocks, each moved to its device: a list over rows of lists over
+    columns (the per-device form of :func:`sharded_divergence_2d`)."""
+    dr, dk = grid.shape
+    if x.shape[0] % dr:
+        raise ValueError(f"replica count {x.shape[0]} not divisible by mesh axis {dr}")
+    if x.shape[1] % dk:
+        raise ValueError(f"key count {x.shape[1]} not divisible by mesh axis {dk}")
+    return [[_to(blk, grid[i, j], dtype) for j, blk in enumerate(_split(row, dk, 1))]
+            for i, row in enumerate(_split(x, dr, 0))]
+
+
+def _checked_blocks(x, grid: np.ndarray, dtype: torch.dtype) -> list[list[torch.Tensor]]:
+    """The per-device form as given: a list over ``grid``'s rows of
+    :func:`_shards`-checked rows, every block of one shape."""
+    if len(x) != grid.shape[0]:
+        raise ValueError(f"{len(x)} rows of per-device blocks for {grid.shape[0]} replica shards")
+    blocks = [_shards(row, list(grid[i]), 1, dtype) for i, row in enumerate(x)]
+    shapes = {tuple(t.shape) for row in blocks for t in row}
+    if len(shapes) != 1:
+        raise ValueError(f"per-device blocks differ in shape: {sorted(shapes)}")
+    return blocks
+
+
 def sharded_divergence_2d(
     mesh: Mesh,
     digests,
@@ -241,49 +276,89 @@ def sharded_divergence_2d(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Replica-AND-keyspace-sharded divergence for large fleets.
 
-    Over a 2-D ``(replica, key)`` mesh each device holds an [R/Dr, N/Dk]
-    block. Reference replica 0 lives in the first replica shard: each key
-    column copies just that shard's row 0 (digests and presence) to every
-    device of the column — the JAX program's one-row ``all_gather`` — never
-    the other replicas' blocks. Per-replica counts are summed over the key
-    axis only.
+    Over a 2-D ``(replica, key)`` mesh of Dr x Dk devices each device holds
+    an [R/Dr, N/Dk] block. Reference replica 0 lives in the first replica
+    shard: each key column takes just that shard's row 0 (digests and
+    presence) — the JAX program's one-row ``all_gather`` — never the other
+    replicas' blocks. Per-replica counts are summed over the key axis only.
 
-    digests [R, N, 8] uint32, present [R, N] bool; R and N divisible by
-    their mesh axes. Returns (masks [R, N] bool, counts [R] int32), both on
-    the first device of the mesh. A mesh that spans processes is refused
-    (``NotImplementedError``): this form is not in the port across
-    processes yet.
+    Inputs: digests [R, N, 8] uint32 and present [R, N] bool (numpy, or
+    tensors), R and N divisible by their mesh axes; or the per-device form
+    of both (``multihost.lift_local_blocks``: lists over this process's
+    replica shards of lists over its key shards, each block on its device).
+    A mesh that spans processes takes the per-device form only. There the
+    reference rows of this process's key columns come from the process
+    holding replica shard 0 by one ``broadcast`` over
+    ``mesh.replica_group`` (digests, then presence as bytes); nothing else
+    crosses but the counts.
+
+    Returns (masks, counts), both on the first device of this process's
+    grid. masks: bool, this process's block of the [R, N] masks,
+    ``[R/Dr * rows, N/Dk * columns]`` for its ``rows x columns`` devices,
+    whose element (0, 0) is replica ``mesh.origin[replica] * R/Dr``, key
+    ``mesh.origin[key] * N/Dk`` (in one process: the whole [R, N]).
+    counts: [R] int32, the same on every process (across processes an
+    ``all_reduce`` sum of a zero-filled [R] buffer holding each process's
+    rows).
     """
-    if mesh.spans_processes:
-        refuse("multihost_2d")
-    r, n = digests.shape[0], digests.shape[1]
-    dr, dk = mesh.shape[replica_axis], mesh.shape[key_axis]
-    if r % dr:
-        raise ValueError(f"replica count {r} not divisible by mesh axis {dr}")
-    if n % dk:
-        raise ValueError(f"key count {n} not divisible by mesh axis {dk}")
-    names = mesh.axis_names
-    grid = np.moveaxis(mesh.devices, (names.index(replica_axis), names.index(key_axis)), (0, 1))
-    grid = grid.reshape(dr, dk, -1)[:, :, 0]
+    grid = _grid(mesh, replica_axis, key_axis)
+    lr, lc = grid.shape
+    dr, dk = mesh.global_shape[replica_axis], mesh.global_shape[key_axis]
+    row0 = mesh.origin[mesh.axis_names.index(replica_axis)]
+    if _per_device(digests):
+        dig = _checked_blocks(digests, grid, torch.int32)
+        pres = _checked_blocks(present, grid, torch.bool)
+        rb, nb = dig[0][0].shape[0], dig[0][0].shape[1]
+        if tuple(pres[0][0].shape) != (rb, nb):
+            raise ValueError(f"present blocks {tuple(pres[0][0].shape)} for digest blocks {(rb, nb)}")
+    elif mesh.spans_processes:
+        raise ValueError("across processes sharded_divergence_2d takes the per-device form "
+                         "(multihost.lift_local_blocks)")
+    else:
+        dig = grid_blocks(digests, grid, torch.int32)
+        pres = grid_blocks(present, grid, torch.bool)
+        rb, nb = digests.shape[0] // dr, digests.shape[1] // dk
     dev0 = grid[0, 0]
-    rows = []
-    counts = []
-    dig_cols, pres_cols = _split(digests, dk, 1), _split(present, dk, 1)
-    refs = []
-    for j in range(dk):
-        dev = grid[0, j]
-        refs.append((_to(dig_cols[j][:1], dev), _to(pres_cols[j][:1], dev, torch.bool)))
-    for i in range(dr):
+
+    # Replica 0's rows of this process's key columns, on each column's
+    # first device: held here, or broadcast by the process that holds them.
+    if row0 == 0:
+        refs = [(dig[0][j][:1], pres[0][j][:1]) for j in range(lc)]
+    else:
+        refs = None
+    if mesh.replica_group is not None:
+        import torch.distributed as dist
+
+        group, src = mesh.replica_group
+        if refs is not None:
+            ref_d = torch.cat([d[0].to(dev0) for d, _ in refs])
+            ref_p = torch.cat([p[0].to(dev0) for _, p in refs])
+        else:
+            ref_d = torch.empty((lc * nb, 8), dtype=torch.int32, device=dev0)
+            ref_p = torch.empty(lc * nb, dtype=torch.bool, device=dev0)
+        dist.broadcast(ref_d, src, group=group)
+        dist.broadcast(ref_p.view(torch.uint8), src, group=group)
+        refs = [(ref_d[None, j * nb:(j + 1) * nb], ref_p[None, j * nb:(j + 1) * nb])
+                for j in range(lc)]
+    elif refs is None:
+        raise ValueError("this process holds no replica shard 0 and its mesh has no replica group")
+
+    rows, local_counts = [], []
+    for i in range(lr):
         row_masks = []
-        for j in range(dk):
+        for j in range(lc):
             dev = grid[i, j]
-            dig = _to(_split(dig_cols[j], dr, 0)[i], dev)
-            pres = _to(_split(pres_cols[j], dr, 0)[i], dev, torch.bool)
             ref_d, ref_p = refs[j][0].to(dev), refs[j][1].to(dev)
-            row_masks.append(divergence_vs_ref(dig, pres, ref_d, ref_p))
-        counts.append(_psum([m.sum(dim=1, dtype=torch.int32) for m in row_masks], grid[i, 0]))
+            row_masks.append(divergence_vs_ref(dig[i][j], pres[i][j], ref_d, ref_p))
+        local_counts.append(_psum([m.sum(dim=1, dtype=torch.int32) for m in row_masks], grid[i, 0]))
         rows.append(_gather(row_masks, grid[i, 0], dim=1))
-    return _gather(rows, dev0), _gather(counts, dev0)
+    counts = torch.zeros(rb * dr, dtype=torch.int32, device=dev0)
+    counts[row0 * rb:(row0 + lr) * rb] = _gather(local_counts, dev0)
+    if mesh.spans_processes:
+        import torch.distributed as dist
+
+        dist.all_reduce(counts, group=mesh.group)
+    return _gather(rows, dev0), counts
 
 
 def make_anti_entropy_step(mesh: Mesh, axis: str = "key"):

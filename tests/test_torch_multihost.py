@@ -11,8 +11,16 @@
   arguments, and is a no-op without a coordinator.
 - One process: ``lift_local_shards`` + the step in the per-device form over
   ``["cpu"] * 4`` equals the single-tensor form and the JAX step bit for
-  bit; shards on the wrong device are refused; the 2-D mesh across
-  processes is refused naming its ROADMAP item.
+  bit; shards on the wrong device are refused.
+- The 2-D ``(replica, key)`` diff across processes: 2 ranks (3 for R = 3,
+  where each replica shard is one replica and the first holds the reference
+  alone) with 1 and 2 ``"cpu"`` devices each, meshes where the replica axis
+  crosses the ranks and where the key axis does, R up to 64: the ranks'
+  mask blocks and counts are bit-identical to the JAX
+  ``sharded_divergence_2d`` on the virtual CPU devices at the same
+  ``(Dr, Dk)`` and to ``divergence_masks_np``. In one process
+  ``lift_local_blocks`` gives the per-device form, which equals the global
+  form; the block layout of each rank in the grid, and its refusals.
 - A node started with ``MKV_COORDINATOR``, ``MKV_NUM_PROCESSES=1`` and
   ``MKV_PROCESS_ID=0`` joins a one-rank group and serves ``HASH`` == golden.
 
@@ -34,7 +42,9 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch_multihost_worker as worker  # tests/ is on sys.path under pytest
 
+from merklekv_tpu.merkle import diff as jdiff
 from merklekv_tpu.merkle.cpu import build_levels as jax_golden_levels
 from merklekv_tpu.merkle.encoding import leaf_hash as jax_leaf_hash
 from merklekv_tpu.merkle.jax_engine import leaf_digests as jax_leaf_digests
@@ -43,7 +53,9 @@ from merklekv_tpu.ops.sha256 import digest_to_bytes as jax_digest_to_bytes
 from merklekv_tpu.parallel import make_mesh as jax_make_mesh
 from merklekv_tpu.parallel import multihost as jax_multihost
 from merklekv_tpu.parallel import sharded_anti_entropy_step as jax_step
+from merklekv_tpu.parallel.sharded_merkle import sharded_divergence_2d as jax_sharded_2d
 from merklekv_tpu_torch.client import MerkleKVClient
+from merklekv_tpu_torch.merkle.diff import divergence_masks_np
 from merklekv_tpu_torch.merkle.packing import pack_leaves
 from merklekv_tpu_torch.merkle.torch_engine import leaf_digests
 from merklekv_tpu_torch.ops.sha256 import digest_to_bytes
@@ -228,12 +240,103 @@ def test_per_device_form_is_checked():
             mesh, packed.blocks[:48], packed.nblocks[:48], digests[:, :48], present[:, :48]))
 
 
-def test_2d_mesh_across_processes_is_refused():
-    spanning = Mesh(np.array([[torch.device("cpu")]], dtype=object), ("replica", "key"),
-                    process_index=0, process_count=2)
-    dig = np.zeros((2, 4, 8), np.uint32)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A item 7"):
-        sharded_divergence_2d(spanning, dig, np.ones((2, 4), bool))
+def _run_2d(world, local, replicas, r, n, seed) -> list[dict]:
+    port = _free_port()
+    args = ["2d", str(n), str(r), str(local), str(replicas), str(seed)]
+    procs = []
+    try:
+        for rank in range(world):
+            env = dict(os.environ, PYTHONPATH=str(ROOT), MKV_COORDINATOR=f"127.0.0.1:{port}",
+                       MKV_NUM_PROCESSES=str(world), MKV_PROCESS_ID=str(rank),
+                       MERKLEKV_TORCH_DEVICE="cpu")
+            procs.append(subprocess.Popen([sys.executable, str(WORKER), *args], env=env,
+                                          stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                          text=True))
+        outs = []
+        for p in procs:
+            out, err = p.communicate(timeout=RANK_TIMEOUT)
+            assert p.returncode == 0, f"rank failed:\n{out}\n{err}"
+            outs.append(dict(ln.split(" ", 1) for ln in out.splitlines()
+                             if ln.startswith(("BLOCK", "COUNTS2D", "MASKS2D"))))
+        return outs
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+
+
+@pytest.mark.integration
+@pytest.mark.parametrize("world,local,replicas,r,n", [
+    (2, 1, 1, 5, 32),
+    (2, 1, 2, 4, 32),
+    (2, 2, 1, 4, 32),
+    (2, 2, 2, 6, 32),
+    (2, 2, 4, 8, 32),
+    (3, 1, 3, 3, 24),
+    (2, 1, 2, 64, 16),
+    (2, 2, 4, 64, 16),
+], ids=["1dev-key-axis-crosses", "1dev-replica-axis-crosses", "2dev-key-axis-crosses",
+        "2dev-replica-axis-crosses-row-per-rank", "2dev-replica-axis-crosses-2-rows-per-rank",
+        "3ranks-R3-reference-alone", "1dev-R64", "2dev-R64-4-replica-shards"])
+def test_2d_diff_across_ranks_equals_jax_and_host(world, local, replicas, r, n):
+    seed = 1000 * world + 100 * local + r
+    dig, pres = worker.diff_inputs(n, r, seed)
+    dr, dk = replicas, world * local // replicas
+    jm, jc = jax_sharded_2d(jax_make_mesh({"replica": dr, "key": dk},
+                                          devices=jax.devices()[:dr * dk]), dig, pres)
+    want = jdiff.divergence_masks_np(dig, pres)
+    np.testing.assert_array_equal(np.asarray(jm), want)
+    np.testing.assert_array_equal(divergence_masks_np(dig, pres), want)
+    got = np.zeros((r, n), np.int8) - 1
+    for out in _run_2d(world, local, replicas, r, n, seed):
+        assert out["COUNTS2D"] == ",".join(str(int(c)) for c in np.asarray(jc))
+        r0, c0, rows, cols = (int(x) for x in out["BLOCK"].split())
+        bits = np.unpackbits(np.frombuffer(bytes.fromhex(out["MASKS2D"]), np.uint8))
+        assert (got[r0:r0 + rows, c0:c0 + cols] == -1).all(), "two ranks hold one block"
+        got[r0:r0 + rows, c0:c0 + cols] = bits[:rows * cols].reshape(rows, cols)
+    np.testing.assert_array_equal(got, want.astype(np.int8))
+
+
+@pytest.mark.parametrize("rank,l,cols,block", [
+    (0, 1, 2, (0, 0, 1, 1)),
+    (1, 1, 2, (0, 1, 1, 1)),
+    (1, 1, 1, (1, 0, 1, 1)),
+    (1, 2, 4, (0, 2, 1, 2)),
+    (3, 2, 4, (1, 2, 1, 2)),
+    (1, 2, 1, (2, 0, 2, 1)),
+    (1, 4, 2, (2, 0, 2, 2)),
+], ids=["share-of-row-0", "share-of-row-1", "one-column", "half-row", "half-of-row-1",
+        "two-rows-one-column", "two-rows"])
+def test_each_rank_takes_a_rectangle_of_the_2d_grid(rank, l, cols, block):
+    assert multihost._block_of(rank, l, cols) == block
+
+
+@pytest.mark.parametrize("l,cols", [(2, 3), (3, 2)])
+def test_a_rank_whose_devices_are_not_a_rectangle_is_refused(l, cols):
+    with pytest.raises(ValueError, match="whole rows or an equal share of one row"):
+        multihost._block_of(1, l, cols)
+
+
+def test_one_process_2d_per_device_form_equals_global_and_is_checked():
+    dig, pres = worker.diff_inputs(16, 4, 7)
+    mesh = make_mesh({"replica": 2, "key": 2}, devices=["cpu"] * 4)
+    d_blocks, p_blocks = multihost.lift_local_blocks(mesh, dig, pres)
+    assert [len(row) for row in d_blocks] == [2, 2] and d_blocks[1][0].shape == (2, 8, 8)
+    masks, counts = sharded_divergence_2d(mesh, d_blocks, p_blocks)
+    masks_1, counts_1 = sharded_divergence_2d(mesh, dig, pres)
+    assert torch.equal(masks, masks_1) and torch.equal(counts, counts_1)
+    np.testing.assert_array_equal(masks.numpy(), divergence_masks_np(dig, pres))
+    meta = [[t.to("meta") for t in row] for row in d_blocks]
+    with pytest.raises(ValueError, match="shard 0 is on meta"):
+        sharded_divergence_2d(mesh, meta, p_blocks)
+    with pytest.raises(ValueError, match="1 rows of per-device blocks for 2 replica shards"):
+        sharded_divergence_2d(mesh, d_blocks[:1], p_blocks[:1])
+    with pytest.raises(ValueError, match="1 per-device shards for 2 devices"):
+        sharded_divergence_2d(mesh, [row[:1] for row in d_blocks], p_blocks)
+    spanning = Mesh(mesh.devices, mesh.axis_names, process_index=0, process_count=2)
+    with pytest.raises(ValueError, match="takes the per-device form"):
+        sharded_divergence_2d(spanning, dig, pres)
 
 
 @pytest.mark.integration

@@ -10,9 +10,9 @@
   config starts, a partitioned TOML loads, ``router`` and ``rebalance`` run,
   the names the node imports from those modules are the real ones and agree
   with the JAX package's, and the node's paths into them run.
-- Refusals: the subcommands the port does not have yet (``top``,
-  ``blackbox``) raise ``NotImplementedError`` naming their ROADMAP item; a
-  node whose engine is not ``"cpu"`` fails at start without a GPU unless
+- ``python -m merklekv_tpu_torch top --once`` against a CPU node exits 0
+  (BKND 1 from its mirror); ``blackbox`` on an unreadable input exits 1.
+- A node whose engine is not ``"cpu"`` fails at start without a GPU unless
   ``MERKLEKV_TORCH_DEVICE=cpu``.
 - ``PROFILE <secs>`` answers ``PROFILE <dir>`` and writes a torch trace.
 
@@ -35,7 +35,6 @@ import pytest
 import torch
 
 from merklekv_tpu.cluster import partmap as jpartmap
-from merklekv_tpu_torch import unported
 from merklekv_tpu_torch.__main__ import main, start
 from merklekv_tpu_torch.client import MerkleKVClient, MovedError
 from merklekv_tpu_torch.cluster import partmap
@@ -138,9 +137,16 @@ def test_node_serves_hash_and_treelevel_from_its_mirror(node):
     assert c.hash(force=True) == "0" * 64
     refill = {b"r%03d" % i: b"x%d" % i for i in range(5)}
     c.mset({k.decode(): v.decode() for k, v in refill.items()})
+    # The background pump drains a write nobody forces. (device.pump_batches
+    # counts only its drains, and every forced HASH above publishes the
+    # backlog itself, so under load the forced reads could leave it nothing.)
+    c.set("r999", "unforced")
+    refill[b"r999"] = b"unforced"
+    pumped = int(base.get("device.pump_batches", 0))
+    assert _wait(lambda: int(c.metrics().get("device.pump_batches", 0)) > pumped), \
+        "the pump never drained an unforced write"
     _check(c, refill.items())
     m = c.metrics()
-    assert int(m.get("device.pump_batches", 0)) > int(base.get("device.pump_batches", 0))
     for k in ("device.fallbacks", "device.pump_errors", "device.warm_errors"):
         assert int(m.get(k, 0)) == int(base.get(k, 0)), k
 
@@ -255,14 +261,33 @@ def test_partitioned_toml_loads(cpu_env, tmp_path):
     assert pmap.replicas == [["127.0.0.1:7001"], ["127.0.0.1:7002"]]
 
 
-_SUBCOMMAND_ITEMS = {"top": 6, "blackbox": 6}
+def test_top_once_against_a_cpu_node_exits_0(node):
+    run, c = node
+    c.set("a", "1")
+    assert _wait(lambda: _mirror_serves(c))
+    addr = f"127.0.0.1:{run.port}"
+    proc = subprocess.run(
+        [sys.executable, "-m", "merklekv_tpu_torch", "top", "--nodes", addr, "--once",
+         "--interval", "0.1", "--events"],
+        cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    lines = proc.stdout.splitlines()
+    header = lines[0].split()
+    row = next(ln for ln in lines if ln.startswith(addr)).split()
+    assert row[-1] == "UP" and row[header.index("BKND")] == "1"
+    assert "-- flight events" in proc.stdout
 
 
-@pytest.mark.parametrize("sub", unported.SUBCOMMANDS)
-def test_unported_subcommand_is_refused(sub):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue A item {_SUBCOMMAND_ITEMS[sub]}\\)"):
-        main([sub])
+def test_blackbox_on_an_unreadable_input_exits_1(tmp_path):
+    bad = tmp_path / "garbage.bin"
+    bad.write_bytes(b"not a spill")
+    proc = subprocess.run(
+        [sys.executable, "-m", "merklekv_tpu_torch", "blackbox", str(bad)],
+        cwd=str(ROOT), env=dict(os.environ, PYTHONPATH=str(ROOT)),
+        capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 1
+    assert f"unreadable: {bad}" in proc.stdout
 
 
 def _durable_cfg(tmp_path, port, broker, partition_map=None) -> Config:

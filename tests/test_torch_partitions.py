@@ -4,9 +4,10 @@ The cases of ``tests/test_partitions.py`` and
 ``tests/test_partition_chaos_proc.py`` against the port's modules
 (``cluster/partmap.py``, ``cluster/router.py``, the partitioned
 ``ClusterNode``, ``PartitionedClient``) and spawned
-``python -m merklekv_tpu_torch`` nodes; the JAX file's ``top``,
-``blackbox`` and ``bench_gate`` cases wait for those tools (ROADMAP Queue A
-item 6, and the benchmark). Then parity with the JAX package:
+``python -m merklekv_tpu_torch`` nodes; the JAX file's ``top`` and
+``blackbox`` cases are in ``tests/test_torch_obs_tools.py``, its
+``bench_gate`` case waits for the benchmark. Then parity with the JAX
+package:
 
 - ``partition_of`` equals the JAX package's for 10,000 seeded keys at P in
   {1, 2, 3, 4, 7, 16}, and the native guard's ``ERROR MOVED`` answers;

@@ -1273,12 +1273,9 @@ def test_kill9_donor_mid_transfer_joiner_aborts_blackbox_parses(cluster):
         flight = os.path.join(
             str(cluster.tmp), "n0", f"node-{cluster.ports[0]}", "flight"
         )
-        # The port has no blackbox yet (ROADMAP Queue A item 6): the JAX
-        # package's analyzer reads the port's spill (same format).
         rc = subprocess.run(
-            [sys.executable, "-m", "merklekv_tpu", "blackbox", flight],
-            env=dict(os.environ, PYTHONPATH=REPO,
-                     MERKLEKV_JAX_PLATFORM="cpu", JAX_PLATFORMS="cpu"),
+            [sys.executable, "-m", "merklekv_tpu_torch", "blackbox", flight],
+            env=dict(os.environ, PYTHONPATH=REPO),
             stdout=subprocess.DEVNULL,
             stderr=subprocess.STDOUT,
         ).returncode
