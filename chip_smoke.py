@@ -15,12 +15,14 @@ Phases, one line each (an uncaught failure exits nonzero):
 2. kernels  — each kernel against its plain PyTorch version on the card, bit
               for bit, over several shapes (N = 1..1M, multi-block messages
               with nblocks 0..3, odd level sizes, P = 16 and 65536), plus a
-              few hundred leaves and nodes against ``hashlib``; the fused
+              few hundred leaves and nodes against ``hashlib``; the
               path-rehash kernel on cloned 2^20-leaf levels for k = 1, a
               sibling pair, the first and last leaf, one whole subtree,
-              every leaf, 257, 4096 and 65,536 random leaves, and the
-              serving path's own input (4096 random one-block leaves,
-              [4096, 1, 16]); the promotion-chain kernel for n = 1, 2, 3,
+              every leaf, 257, 4096 and 65,536 random leaves, a Zipf-skewed
+              set, one position per 2^8-leaf subtree, and the serving
+              path's own input (4096 random one-block leaves, [4096, 1,
+              16]), its scratch zero again after each, and its device time
+              on each set; the promotion-chain kernel for n = 1, 2, 3,
               2^19+1, 1,000,000, 2^20.
 3. rebuild  — ``anti_entropy_forward`` at 10M keys (``bench.py::_make_kv``
               shapes) and 8 replicas with 1% of keys diverged per non-reference
@@ -28,7 +30,7 @@ Phases, one line each (an uncaught failure exits nonzero):
               131,075-key prefix root against the golden CPU tree, counts and
               masks against the injected divergence; median of timed runs.
 4. serving  — ``DeviceMerkleState`` over 1M keys: 20 value batches of 4096
-              keys (each exactly one fused path-rehash launch and no other
+              keys (each exactly one path-rehash launch and no other
               kernel of ours) and one structural batch, every root and
               TREELEVEL slice (each level's last node included) against the
               golden ``CpuMerkleState``; then sustained writes/s, timed with
@@ -71,9 +73,14 @@ Phases, one line each (an uncaught failure exits nonzero):
               ``launches_partitions``, those of phases 8 to 12 alone;
               its device time (torch.profiler kernel
               time), the plain version's time, and its bound; for the two
-              serving kernels the ``[times]`` line also gives a modelled
-              latency floor (not in the kernels line: it assumes a clock and
-              an issue rate, and measures nothing).
+              serving kernels also ``serial_floor_ms``, their measured serial
+              floor: ``hash_chain_kernel`` (one warp, the fastest node hash,
+              dependent hashes in registers) at the serving path's one-block
+              leaf and 20 node hashes and the chain's even levels, with the
+              SM clock that nvidia-smi reads meanwhile (the ``[times]``
+              lines). A ``[path k]`` line gives, per phase, the batch sizes
+              k of the path-rehash launches (largest, and launches by power
+              of two).
 8. node     — the node entry, at 1M keys (config 4) and only through what a
               user runs. 8a: ``python -m merklekv_tpu_torch`` spawned with
               replication on the in-process bus and anti-entropy engine
@@ -213,6 +220,7 @@ a checkout of the repository, the script exits nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import collections
 import hashlib
 import json
 import statistics
@@ -295,14 +303,11 @@ LOGIC_MSG_BLOCK, ADDS_MSG_BLOCK = 64 * 10 + 48 * 8, 64 * 4 + 48 * 2 + 8
 LOGIC_PAD_BLOCK, ADDS_PAD_BLOCK = 64 * 10, 64 * 4 + 8
 LOGIC_NODE = LOGIC_MSG_BLOCK + LOGIC_PAD_BLOCK
 ADDS_NODE = ADDS_MSG_BLOCK + ADDS_PAD_BLOCK
-# Modelled latency floor of a serial chain of hashes, one thread (so one warp)
-# per hash, printed in the [times] line only: a warp issues its shift/logic instructions through its SM
-# sub-partition's 16 INT32 lanes, 2 cycles per warp instruction whatever the
-# number of active lanes, at the 1.98 GHz boost clock: 3,328 cycles for a
-# node hash. (A round's dependent chain, about three ALU instructions, is
-# shorter than that issue time.) Memory latency comes on top.
-WARP_CYCLES_PER_OP = 2
-CLOCK_HZ = 1.98e9
+# The serial floor of the two serving kernels is measured, not modelled:
+# hash_chain_kernel (csrc/merkle_paths.cu) times one warp hashing a chain of
+# dependent node hashes in registers (phase_kernel_times), while
+# nvidia-smi samples the SM clock.
+CHAIN_RUNS = 200
 # Kernels the main path (phases 3 to 6 and 8) must launch; node_pairs is held
 # against its plain version in phase 2 but no longer runs on the main path.
 MAIN_PATH_KERNELS = ("leaf", "node_level", "path_rehash", "promotion_chain")
@@ -326,11 +331,58 @@ def bound_by(nbytes: float, logic: float, adds: float) -> str:
     return "bytes" if by_bytes >= by_ops else "operations"
 
 
-def latency_floor_ms(logic: int) -> float:
-    """Modelled least time of hashes that depend on each other, ``logic``
-    shift/logic ops in all, issued by one warp (assumed clock and issue rate,
-    not a measurement)."""
-    return logic * WARP_CYCLES_PER_OP / CLOCK_HZ * 1e3
+class ClockSampler:
+    """Samples ``nvidia-smi --query-gpu=clocks.sm`` (MHz) on a thread while
+    the ``with`` block runs."""
+
+    def __init__(self) -> None:
+        self.samples: list[int] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True)
+            if out.returncode == 0 and out.stdout.strip():
+                self.samples.append(int(out.stdout.split()[0]))
+            self._stop.wait(0.05)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(10)
+
+
+def serial_floor(dev, rng: np.random.Generator, d: int, nblk: int = 0) -> dict:
+    """The measured least time of a leaf of nblk blocks and d node hashes
+    that each wait on the one before, with the fastest node hash:
+    ``hash_chain_kernel`` over CHAIN_RUNS launches (its own SM clock and
+    global-timer readings, median), checked against its plain version,
+    with the SM clock nvidia-smi reads meanwhile. ``*_per_hash`` divide the
+    whole chain by d."""
+    import torch
+
+    from merklekv_tpu_torch.ops import merkle_paths as mp
+
+    inp = rand_words(rng, (32, 16), dev)
+    got, _, _ = mp.hash_chain_cuda(inp, d, nblk)
+    if not torch.equal(got, mp.hash_chain(inp, d, nblk)):
+        raise AssertionError(f"hash_chain_kernel differs from its plain version at d={d}, "
+                             f"nblk={nblk}")
+    cycles, ns = [], []
+    with ClockSampler() as clk:
+        for _ in range(CHAIN_RUNS):
+            _, c, t = mp.hash_chain_cuda(inp, d, nblk)
+            cycles.append(c)
+            ns.append(t)
+    cyc, t = float(np.median(cycles)), float(np.median(ns))
+    return {"d": d, "nblk": nblk, "ms": t / 1e6, "cycles": cyc, "ns_per_hash": t / d,
+            "cycles_per_hash": cyc / d, "ghz": cyc / t, "clocks_sm_mhz": sorted(set(clk.samples))}
 
 
 def gpu_line() -> str:
@@ -369,7 +421,7 @@ def profiled_kernel_ms(fn, kernel: str, reps: int, warmup: int = 2) -> tuple[flo
     the kernel's own time on the card, without the host's call overhead),
     and the number of launches the profiler recorded. The profiler can drop
     some records of a short kernel (one H100 run kept 158 of 200), so the
-    mean is over those it kept."""
+    mean is over those it kept; it must keep one at least."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -385,6 +437,30 @@ def profiled_kernel_ms(fn, kernel: str, reps: int, warmup: int = 2) -> tuple[flo
     if not 0 < len(times) <= reps:
         raise AssertionError(f"profiler saw {len(times)} launches of {kernel}, expected {reps}")
     return sum(times) / len(times) / 1e3, len(times)
+
+
+def path_kernel_ms(levels, scratch, blocks, nblocks, pos, reps: int) -> float:
+    """Device ms per launch of the path-rehash kernel alone: CUDA events
+    around ``reps`` back-to-back launches through the library's entry point
+    (without the wrapper's checks and its copy of the positions)."""
+    import torch
+
+    from merklekv_tpu_torch.ops import merkle_paths as mp
+    from merklekv_tpu_torch.ops.sha256_cuda import _stream
+
+    dev = levels[0].device
+    c = int(levels[0].shape[0])
+    lib, st = mp._lib(), mp._levels_struct(levels, dev)
+    pos_t = torch.from_numpy(np.asarray(pos, np.int32)).to(dev)
+
+    def launch() -> None:
+        rc = lib.mkv_path_rehash(st, blocks.data_ptr(), nblocks.data_ptr(), pos_t.data_ptr(),
+                                 len(pos), blocks.shape[1], mp.PATH_WIDTH, mp._path_top(c),
+                                 scratch.data_ptr(), _stream(dev))
+        if rc:
+            raise RuntimeError(f"path_rehash kernel failed to launch: {rc}")
+
+    return event_ms(launch, reps)
 
 
 def u32_max_abs_err(a, b) -> int:
@@ -517,7 +593,7 @@ def phase_kernels(dev, rng: np.random.Generator, sizes=(1, 2, 3, 4097, 1 << 20))
 
 
 def path_sets(rng: np.random.Generator, c: int) -> dict:
-    """The position sets the fused kernel is held to (sorted, unique)."""
+    """The position sets the path-rehash kernel is held to (sorted, unique)."""
     def rand(k):
         return np.sort(rng.choice(c, size=k, replace=False))
 
@@ -530,12 +606,17 @@ def path_sets(rng: np.random.Generator, c: int) -> dict:
         "257 random": rand(257),
         "4096 random": rand(4096),
         "65536 random": rand(65536),
+        # Dense at the left end, sparse to the right (Zipf over the index).
+        "Zipf-skewed": np.unique(np.minimum(rng.zipf(1.1, size=20_000), c) - 1),
+        # No two in one 2^8-leaf subtree: no meeting below level 9.
+        "one per 2^8-leaf subtree": np.arange(c >> 8) * 256 + rng.integers(0, 256, size=c >> 8),
     }
 
 
 def phase_paths(dev, rng: np.random.Generator, depth: int = 20) -> dict:
-    """The fused path-rehash and promotion-chain kernels against their plain
-    versions on the card, bit for bit, on cloned 2^depth-leaf levels."""
+    """The path-rehash and promotion-chain kernels against their plain
+    versions on the card, bit for bit, on cloned 2^depth-leaf levels; the
+    path-rehash kernel's device time on each position set."""
     import torch
 
     from merklekv_tpu_torch.merkle.incremental import _reduce_levels
@@ -548,22 +629,27 @@ def phase_paths(dev, rng: np.random.Generator, depth: int = 20) -> dict:
     cases = [(what, pos, 2, 0) for what, pos in path_sets(rng, c).items()]
     cases.append((f"the serving shape [{BATCH}, 1, 16] at {BATCH} random positions",
                   np.sort(rng.choice(c, size=BATCH, replace=False)), 1, 1))
+    times = []
     for what, pos, nblk, nb_lo in cases:
         k = len(pos)
         blocks = rand_words(rng, (k, nblk, 16), dev)
         nblocks = torch.from_numpy(
             rng.integers(nb_lo, nblk + 1, size=k, dtype=np.int32)).to(dev)
-        counters = torch.zeros(c - 1, dtype=torch.int32, device=dev)
+        scratch = mp.path_scratch(c, dev)
         got = [lv.clone() for lv in base]
         want = [lv.clone() for lv in base]
-        mp.path_rehash_cuda(got, counters, blocks, nblocks, pos)
+        mp.path_rehash_cuda(got, scratch, blocks, nblocks, pos)
         mp.path_rehash(want, blocks, nblocks, pos)
         err = max(u32_max_abs_err(g, w) for g, w in zip(got, want))
         errs["path_rehash"] = max(errs["path_rehash"], err)
         if err:
             raise AssertionError(f"path_rehash differs from its plain version on {what}: {err}")
-        if counters.any():
-            raise AssertionError(f"path_rehash left arrival counters set on {what}")
+        if scratch.any():
+            raise AssertionError(f"path_rehash left its scratch set on {what}")
+        ms = path_kernel_ms(got, scratch, blocks, nblocks, pos, 20 if k > BATCH else 100)
+        if scratch.any():
+            raise AssertionError(f"path_rehash left its scratch set on {what} (timed)")
+        times.append(f"{what} (k={k}) {ms:.4f}")
         del got, want
     for n in (1, 2, 3, c // 2 + 1, min(1_000_000, c - 1), c):
         err = u32_max_abs_err(mp.promotion_chain_cuda(base, n), mp.promotion_chain(base, n))
@@ -573,9 +659,11 @@ def phase_paths(dev, rng: np.random.Generator, depth: int = 20) -> dict:
     sync()
     log(f"[kernels] path_rehash bit-exact vs plain on cloned 2^{depth}-leaf levels for "
         f"{'; '.join(case[0] for case in cases)}; every level compared whole, padding "
-        f"included; counters zero after each; promotion_chain "
+        f"included; scratch zero after each; promotion_chain "
         f"bit-exact for n = 1, 2, 3, 2^{depth - 1}+1, {min(1_000_000, c - 1)}, 2^{depth} "
         f"(tolerance: exact equality)")
+    log(f"[kernels] path_rehash device ms per launch (CUDA events over back-to-back launches "
+        f"of the kernel alone) by set: {'; '.join(times)}")
     return {"max_abs_err": errs}
 
 
@@ -1291,8 +1379,7 @@ def phase_sharded(dev, seed: int, reb: dict, errs: dict, n_tree: int = TREE_KEYS
     blocks = rand_words(rng, (len(pos), 1, 16), dev)
     nblocks = torch.ones(len(pos), dtype=torch.int32, device=dev)
     got, want = [lv.clone() for lv in base], [lv.clone() for lv in base]
-    mp.path_rehash_cuda(got, torch.zeros(lsh - 1, dtype=torch.int32, device=dev), blocks,
-                        nblocks, pos)
+    mp.path_rehash_cuda(got, mp.path_scratch(lsh, dev), blocks, nblocks, pos)
     mp.path_rehash(want, blocks, nblocks, pos)
     err = max(u32_max_abs_err(g, w) for g, w in zip(got, want))
     top = _reduce_levels(rand_words(rng, (d, 8), dev))
@@ -2121,6 +2208,8 @@ import json, os, runpy, signal, sys
 def _dump(signum, frame):
     mod = sys.modules.get("merklekv_tpu_torch.ops.sha256_cuda")
     counts = dict(mod.LAUNCHES) if mod is not None else {}
+    paths = sys.modules.get("merklekv_tpu_torch.ops.merkle_paths")
+    counts["path_ks"] = dict(paths.PATH_KS) if paths is not None else {}
     path = os.path.join(os.environ["MKV_SMOKE_LAUNCH_DIR"], f"{os.getpid()}.json")
     with open(path + ".tmp", "w") as f:
         json.dump(counts, f)
@@ -2150,6 +2239,7 @@ class _PartCluster:
         self.topic = f"smoke-part-{uuid.uuid4().hex[:8]}"
         self.procs: dict = {}
         self.dead_launches: list = []
+        self.path_ks: dict = {}  # pid -> its path-rehash launches by k, at its last report
         self.broker_port = None
         self.ports = {}
 
@@ -2219,6 +2309,8 @@ class _PartCluster:
             time.sleep(0.02)
         with open(path) as f:
             got = json.load(f)
+        self.path_ks[proc.pid] = collections.Counter(
+            {int(k): n for k, n in got.get("path_ks", {}).items()})
         return {k: int(got.get(k, 0)) for k in ("leaf", "node_level", "node_pairs",
                                                  "path_rehash", "promotion_chain")}
 
@@ -2590,8 +2682,9 @@ def phase_partitions(seed: int, n_keys: int = PART_KEYS, batch: int = BATCH,
         f"{box_s:.3f} s: {len(box['timeline'])} events, anomalies {box_kinds} (none of "
         f"{list(DEVICE_ANOMALIES)}), partition scope {box['partition_scope']!r}; phase "
         f"{seconds:.1f} s")
-    return {"launches": launches, "seconds": seconds, "split_s": split_s,
-            "split_p99_ms": _p99_ms(during), "steady_p99_ms": _p99_ms(steady),
+    return {"launches": launches, "path_ks": sum(pc_.path_ks.values(), collections.Counter()),
+            "seconds": seconds, "split_s": split_s, "split_p99_ms": _p99_ms(during),
+            "steady_p99_ms": _p99_ms(steady),
             "replicate_s": replicate_s, "converge_s": converge_s,
             "boot_ready_s": boot_ready_s, "boot_serve_s": boot_serve_s, "load_s": load_s,
             "top_s": top_box["s"], "blackbox_s": box_s}
@@ -2865,7 +2958,7 @@ def phase_multihost(seed: int, shd: dict, timeout: float = MULTIHOST_TIMEOUT_S) 
 
 
 def path_work(pos: np.ndarray, depth: int) -> dict:
-    """What the fused kernel must do for these sorted positions on a
+    """What the path-rehash kernel must do for these sorted positions on a
     2^depth-leaf tree: distinct touched internal nodes (each hashed once)
     and untouched siblings (each read once)."""
     distinct = untouched = 0
@@ -2904,7 +2997,7 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
     depth = (TREE_KEYS - 1).bit_length()
     tree = _reduce_levels(rand_words(rng, (1 << depth, 8), dev))
     tree_plain = [lv.clone() for lv in tree]
-    counters = torch.zeros((1 << depth) - 1, dtype=torch.int32, device=dev)
+    scratch = mp.path_scratch(1 << depth, dev)
     pos = np.sort(rng.choice(1 << depth, size=BATCH, replace=False))
     pblocks = rand_words(rng, (BATCH, 1, 16), dev)
     pnblocks = torch.ones(BATCH, dtype=torch.int32, device=dev)
@@ -2913,7 +3006,6 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
     sizes = ref_level_sizes(TREE_KEYS)
     even = sum(m % 2 == 0 for m in sizes[:-1])
     nlev = len(sizes)
-
     rows = [
         ("leaf", "sha256_kernels.cu", "merklekv_tpu/ops/sha256_pallas.py:170", "leaf_kernel",
          lambda: leaf_digests_cuda(blocks, nblocks), lambda: plain.sha256_blocks(blocks, nblocks),
@@ -2932,30 +3024,46 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
          f"[{BATCH}, 8] x 2", 200),
         ("path_rehash", "merkle_paths.cu", "merklekv_tpu/ops/sha256_pallas.py:250",
          "path_rehash_kernel",
-         lambda: mp.path_rehash_cuda(tree, counters, pblocks, pnblocks, pos),
+         lambda: mp.path_rehash_cuda(tree, scratch, pblocks, pnblocks, pos),
          lambda: mp.path_rehash(tree_plain, pblocks, pnblocks, pos),
          BATCH * (64 + 4 + 4 + 32) + 32 * (work["distinct"] + work["untouched"]),
          work["distinct"] * LOGIC_NODE + BATCH * LOGIC_MSG_BLOCK,
          work["distinct"] * ADDS_NODE + BATCH * ADDS_MSG_BLOCK,
-         latency_floor_ms(LOGIC_MSG_BLOCK + depth * LOGIC_NODE),
+         (depth, 1),
          f"k={BATCH} of 2^{depth}, {work['distinct']} distinct nodes", 200),
         ("promotion_chain", "merkle_paths.cu", "merklekv_tpu/ops/sha256_pallas.py:250",
          "promotion_chain_kernel",
          lambda: mp.promotion_chain_cuda(tree, TREE_KEYS),
          lambda: mp.promotion_chain(tree, TREE_KEYS),
          (1 + even) * 32 + nlev * 32, even * LOGIC_NODE, even * ADDS_NODE,
-         latency_floor_ms(even * LOGIC_NODE),
+         (even, 0),
          f"n={TREE_KEYS} on 2^{depth}, {even} node hashes", 200),
     ]
+    # Device times first, each in its own profiler session; then the serial
+    # floors of the two serving kernels: the root's path is a leaf of the
+    # batch's one block and `depth` node hashes, the chain `even` node
+    # hashes, each at the fastest node hash's pace.
+    measured = [profiled_kernel_ms(row[4], row[3], row[-1]) for row in rows]
+    floors = {}
+    for row in rows:
+        if row[9] is not None:
+            d, leaf_blocks = row[9]
+            f = floors[row[0]] = serial_floor(dev, rng, d, leaf_blocks)
+            log(f"[times] serial floor of {row[0]}: a leaf of {leaf_blocks} block(s) and {d} "
+                f"dependent node hashes by one warp in registers (hash_chain_kernel, median of "
+                f"{CHAIN_RUNS}): {f['ms']:.4f} ms, {f['ns_per_hash']:.1f} ns and "
+                f"{f['cycles_per_hash']:.0f} SM cycles per node hash (the leaf included), "
+                f"{f['ghz']:.3f} GHz from its own timers; nvidia-smi clocks.sm "
+                f"{f['clocks_sm_mhz']} MHz")
     out = []
-    for name, src, repl, kname, kern, ref, nbytes, logic, adds, floor, shape, reps in rows:
-        ms, seen = profiled_kernel_ms(kern, kname, reps)
+    for row, (ms, seen) in zip(rows, measured):
+        name, src, repl, kname, kern, ref, nbytes, logic, adds, floor, shape, reps = row
+        floor = None if floor is None else floors[name]["ms"]
         call_ms = event_ms(kern, reps)
         plain_ms = event_ms(ref, 2, warmup=1)
         b_ms, by = bound_ms(nbytes, logic, adds), bound_by(nbytes, logic, adds)
         floor_txt = "" if floor is None else (
-            f", modelled latency floor {floor:.4f} ms at an assumed {CLOCK_HZ / 1e9} GHz, "
-            f"{WARP_CYCLES_PER_OP} cycles per warp op")
+            f", measured serial floor {floor:.4f} ms ({ms / floor:.2f}x)")
         log(f"[times] {name} at {shape}: device {ms:.4f} ms per launch ({seen} of {reps} "
             f"launches profiled; back-to-back calls "
             f"{call_ms:.4f} ms; plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms by {by}: {nbytes} B, "
@@ -2964,7 +3072,7 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
             "name": name, "route": "cuda", "source": f"merklekv_tpu_torch/csrc/{src}",
             "replaces": repl, "launches": launches[name], "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None,
+            "library_ms": None, "serial_floor_ms": floor,
         })
     # The level kernel reads rows (2i, 2i+1) as one contiguous message; the
     # alternative is an even/odd split of the level plus the pairs kernel.
@@ -3009,6 +3117,31 @@ def device_profile(label: str, fn, reps: int) -> dict:
     return {"device_ms": busy / reps, "kernels": kernels / reps, "copies": copies / reps}
 
 
+def run_phase(path_ks: dict, name: str, fn, *args):
+    """``fn(*args)``, and the batch sizes of the path-rehash launches it made
+    in this process into ``path_ks[name]`` (a Counter of k)."""
+    from merklekv_tpu_torch.ops.merkle_paths import PATH_KS
+
+    before = collections.Counter(PATH_KS)
+    out = fn(*args)
+    path_ks[name] = collections.Counter(PATH_KS) - before
+    return out
+
+
+def log_path_ks(path_ks: dict) -> None:
+    """Per phase: the path-rehash launches, the largest k, and the launches
+    by the least power of two >= k."""
+    parts = []
+    for name, ks in path_ks.items():
+        if ks:
+            hist = collections.Counter()
+            for k, n in ks.items():
+                hist[1 << (k - 1).bit_length()] += n
+            parts.append(f"{name} {sum(ks.values())} launches, largest k {max(ks)}, "
+                         f"by k <= {dict(sorted(hist.items()))}")
+    log("[path k] batch sizes of the path-rehash launches per phase: " + "; ".join(parts))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3038,25 +3171,28 @@ def main() -> int:
     phase_build()
     errs = phase_kernels(dev, rng)["max_abs_err"]
     errs.update(phase_paths(dev, rng)["max_abs_err"])
-    reb = phase_rebuild(dev, args.seed)
-    shd = phase_sharded(dev, args.seed, reb, errs)
+    ks: dict = {}
+    reb = run_phase(ks, "rebuild", phase_rebuild, dev, args.seed)
+    shd = run_phase(ks, "sharded", phase_sharded, dev, args.seed, reb, errs)
     for key in ("digests", "present", "expected"):
         del reb[key]
     torch.cuda.empty_cache()
     mh = phase_multihost(args.seed, shd)
-    srv = phase_serving(dev, args.seed)
-    mir = phase_mirror(dev, args.seed)
-    drill = phase_fault_drill(dev, args.seed)
+    srv = run_phase(ks, "serving", phase_serving, dev, args.seed)
+    mir = run_phase(ks, "mirror", phase_mirror, dev, args.seed)
+    drill = run_phase(ks, "drill", phase_fault_drill, dev, args.seed)
     entry = phase_node_entry(args.seed)
-    node = phase_node_sync(args.seed)
-    dur = phase_durable(args.seed)
+    node = run_phase(ks, "node", phase_node_sync, args.seed)
+    dur = run_phase(ks, "durable", phase_durable, args.seed)
     part = phase_partitions(args.seed)
+    ks["partitions"] = part["path_ks"]
     phases = {"rebuild": reb, "serving": srv, "mirror": mir, "drill": drill, "node": node,
               "sharded": shd, "durable": dur, "multihost": mh, "partitions": part}
     launches = {k: sum(ph["launches"][k] for ph in phases.values()) for k in srv["launches"]}
     if min(launches[name] for name in MAIN_PATH_KERNELS) < 1:
         raise AssertionError(f"a kernel was never launched on the main path: {launches}")
     log("[launches] " + "; ".join(f"{name} {ph['launches']}" for name, ph in phases.items()))
+    log_path_ks(ks)
     kernels = phase_kernel_times(dev, rng, reb["blocks"], reb["nblocks"], errs, launches)
     for k in kernels:
         k["launches_node"] = node["launches"][k["name"]]

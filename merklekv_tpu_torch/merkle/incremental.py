@@ -59,6 +59,7 @@ from merklekv_tpu_torch.merkle.packing import PackedLeaves, pack_leaves
 from merklekv_tpu_torch.ops.dispatch import (
     hash_blocks,
     hash_node_level,
+    path_scratch,
     promotion_chain,
     rehash_paths,
 )
@@ -109,9 +110,9 @@ class DeviceMerkleState:
         self._index: dict[bytes, int] = {}
         self._levels: Optional[list[torch.Tensor]] = None
         self._capacity = 0
-        # The path-rehash kernel's arrival counters, [C - 1] int32, zero
-        # between batches. Allocated at the first value batch of a capacity,
-        # dropped when the capacity changes or a batch fails.
+        # The path-rehash kernel's scratch (ops/merkle_paths.py::path_scratch),
+        # zero between batches. Allocated at the first value batch of a
+        # capacity, dropped when the capacity changes or a batch fails.
         self._counters: Optional[torch.Tensor] = None
         # The reference tree's last node per level (the promotion chain) as
         # one [L, 8] tensor, computed once per tree version and dropped
@@ -280,8 +281,8 @@ class DeviceMerkleState:
             # and build swap fresh levels in only on success; an in-place
             # value scatter that failed part-way is healed by the retry,
             # which re-scatters the same leaves and re-hashes their paths,
-            # on freshly zeroed arrival counters (a launch cut short may
-            # leave some set). Until that retry the levels may be torn, so
+            # on a freshly zeroed scratch (a launch cut short may leave it
+            # set). Until that retry the levels may be torn, so
             # the serving mirror drops a state whose drain failed rather
             # than serve it. Entries staged by a racing caller win over the
             # restored batch.
@@ -316,8 +317,7 @@ class DeviceMerkleState:
         def scatter() -> None:
             counters = self._counters
             if counters is None:
-                counters = self._counters = torch.zeros(
-                    self._capacity - 1, dtype=torch.int32, device=self._device)
+                counters = self._counters = path_scratch(self._capacity, self._device)
             rehash_paths(self._levels, counters, self._put(packed.blocks),
                          self._put(packed.nblocks), pos)
 

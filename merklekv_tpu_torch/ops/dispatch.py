@@ -18,7 +18,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from merklekv_tpu_torch.ops.merkle_paths import path_rehash_cuda, promotion_chain_cuda
+from merklekv_tpu_torch.ops.merkle_paths import (
+    path_rehash_cuda,
+    path_scratch,
+    promotion_chain_cuda,
+)
 from merklekv_tpu_torch.ops.sha256_cuda import (
     build_levels_cuda,
     leaf_digests_cuda,
@@ -32,6 +36,7 @@ __all__ = [
     "hash_node_level",
     "build_levels",
     "rehash_paths",
+    "path_scratch",
     "promotion_chain",
 ]
 
@@ -57,11 +62,12 @@ def build_levels(leaves: torch.Tensor) -> list[torch.Tensor]:
     return build_levels_cuda(leaves)
 
 
-def rehash_paths(levels: list[torch.Tensor], counters: torch.Tensor,
+def rehash_paths(levels: list[torch.Tensor], scratch: torch.Tensor,
                  blocks: torch.Tensor, nblocks: torch.Tensor, pos: np.ndarray) -> None:
     """Hash k changed leaves into the padded ``levels`` at the sorted unique
-    host positions ``pos`` and re-hash their parent paths, in place."""
-    path_rehash_cuda(levels, counters, blocks, nblocks, pos)
+    host positions ``pos`` and re-hash their parent paths, in place
+    (``scratch`` from ``path_scratch``)."""
+    path_rehash_cuda(levels, scratch, blocks, nblocks, pos)
 
 
 def promotion_chain(levels: list[torch.Tensor], n: int) -> torch.Tensor:

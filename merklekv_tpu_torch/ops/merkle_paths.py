@@ -18,7 +18,15 @@ Wrappers (``path_rehash_cuda``, ``promotion_chain_cuda``), as in
   from any thread), or the wrapper raises (a failed build or a refused
   launch is an error, never a fallback);
 - ``LAUNCHES["path_rehash"]`` / ``LAUNCHES["promotion_chain"]`` count the
-  launches, incremented at the launch and nowhere else.
+  launches, incremented at the launch and nowhere else; ``PATH_KS[k]``
+  counts the path-rehash launches of k positions, beside it (never reset:
+  a reader takes the difference of two copies).
+
+The path-rehash kernel cuts a batch into chunks of about ``PATH_WIDTH``
+sorted positions, one thread block each, and finishes the tree from the
+level that is at most ``PATH_TOP_NODES`` nodes wide in the last block to
+arrive (``csrc/merkle_paths.cuh``); its scratch (``path_scratch``) holds the
+arrival counter, a bitmap and the cuts, zero between launches.
 
 Tree layout: ``levels[l]`` is the capacity-padded level l, ``[C >> l, 8]``
 int32 words, ``C`` a power of two; ``levels[-1]`` is the ``[1, 8]`` root.
@@ -26,6 +34,7 @@ int32 words, ``C`` a power of two; ``levels[-1]`` is the ``[1, 8]`` root.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import numpy as np
@@ -43,12 +52,27 @@ from merklekv_tpu_torch.ops.sha256_cuda import (
 )
 
 __all__ = [
+    "PATH_WIDTH",
+    "PATH_TOP_NODES",
+    "PATH_KS",
+    "path_scratch",
     "path_rehash",
     "promotion_chain",
     "path_rehash_cuda",
     "promotion_chain_cuda",
+    "hash_chain",
+    "hash_chain_cuda",
 ]
 
+
+# The path-rehash kernel's chunk width (even, 2..64: a chunk spans up to 2W
+# entries of a 128-thread block) and the width of its top level (<= 128).
+# Smaller values only make the kernel cut small trees into many chunks.
+PATH_WIDTH = 64
+PATH_TOP_NODES = 128
+
+# Launches of the path-rehash kernel by batch size k.
+PATH_KS: collections.Counter = collections.Counter()
 
 # ------------------------------------------------------------ plain versions
 
@@ -65,6 +89,21 @@ def path_rehash(levels: list[torch.Tensor], blocks: torch.Tensor,
         idx = idx // 2
         below = levels[lvl - 1]
         levels[lvl].index_put_((idx,), sha256_node_pairs(below[2 * idx], below[2 * idx + 1]))
+
+
+def hash_chain(inp: torch.Tensor, d: int, nblk: int = 0) -> torch.Tensor:
+    """The plain version of the measurement microkernel: [32, 16] int32
+    rows (x, y) -> [32, 8]; x starts as the digest of a leaf of nblk blocks,
+    each the whole row (the row's x when nblk is 0), then x <- H(x || y)
+    d times per row."""
+    x, y = inp[:, :8], inp[:, 8:]
+    if nblk:
+        x = sha256_blocks(inp[:, None, :].repeat(1, nblk, 1),
+                          torch.full((inp.shape[0],), nblk, dtype=torch.int32,
+                                     device=inp.device))
+    for _ in range(d):
+        x = sha256_node_pairs(x, y)
+    return x
 
 
 def promotion_chain(levels: list[torch.Tensor], n: int) -> torch.Tensor:
@@ -100,9 +139,16 @@ def _lib() -> ctypes.CDLL:
     entry points of ``csrc/merkle_paths.cu`` bound."""
     lib = build_kernels().lib
     p, i64, i32, levels = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.POINTER(MkvLevels)
-    lib.mkv_path_rehash.argtypes = [levels, p, p, p, i32, i32, p, p]
+    lib.mkv_path_rehash.argtypes = [levels, p, p, p, i32, i32, i32, i32, p, p]
     lib.mkv_promotion_chain.argtypes = [levels, i64, i32, p, p]
-    lib.mkv_path_rehash.restype = lib.mkv_promotion_chain.restype = ctypes.c_int
+    lib.mkv_hash_chain.argtypes = [p, i32, i32, p, p, p]
+    lib.mkv_path_group.argtypes = []
+    for fn in (lib.mkv_path_rehash, lib.mkv_promotion_chain, lib.mkv_hash_chain,
+               lib.mkv_path_group):
+        fn.restype = ctypes.c_int
+    if lib.mkv_path_group() != _PATH_GROUP:
+        raise RuntimeError(f"the kernel's arrival groups have {lib.mkv_path_group()} blocks, "
+                           f"the scratch is sized for {_PATH_GROUP}")
     return lib
 
 
@@ -127,14 +173,37 @@ def _levels_struct(levels: list[torch.Tensor], dev: torch.device) -> MkvLevels:
     return st
 
 
-def path_rehash_cuda(levels: list[torch.Tensor], counters: torch.Tensor,
+# Blocks per arrival group of the kernel (csrc/merkle_paths.cuh, kMkvGroup;
+# _lib() checks the library's, tests/test_torch_csrc_core.py the header's).
+_PATH_GROUP = 128
+
+
+def _scratch_words(k: int) -> int:
+    """The kernel's scratch for k positions: its counters, bitmap and cuts."""
+    g = -(-k // PATH_WIDTH)
+    return 2 * g + 3 + -(-g // _PATH_GROUP)
+
+
+def path_scratch(capacity: int, device) -> torch.Tensor:
+    """Zeroed scratch for ``path_rehash_cuda`` on any batch of a tree of
+    ``capacity`` leaves."""
+    return torch.zeros(_scratch_words(capacity), dtype=torch.int32, device=device)
+
+
+def _path_top(capacity: int) -> int:
+    """The kernel's top level: the lowest level at most PATH_TOP_NODES wide,
+    and at least level 1."""
+    return max(1, capacity.bit_length() - PATH_TOP_NODES.bit_length())
+
+
+def path_rehash_cuda(levels: list[torch.Tensor], scratch: torch.Tensor,
                      blocks: torch.Tensor, nblocks: torch.Tensor,
                      pos: np.ndarray) -> None:
     """Hash k changed leaves ([k, B, 16] int32 blocks, [k] int32 block
     counts) into ``levels`` at the host positions ``pos`` [k] (sorted,
     unique), and re-hash every touched parent, in place: one launch of the
-    fused kernel. ``counters`` [C - 1] int32 is the kernel's arrival scratch,
-    zero on entry and left zero (unused on the CPU)."""
+    path-rehash kernel. ``scratch`` (``path_scratch``) is the kernel's
+    int32 scratch, zero on entry and left zero (unused on the CPU)."""
     pos = np.asarray(pos)
     k = len(pos)
     c = _capacity(levels)
@@ -154,18 +223,20 @@ def path_rehash_cuda(levels: list[torch.Tensor], counters: torch.Tensor,
     st = _levels_struct(levels, dev)
     _check_cuda(blocks, "blocks", 3, 16, dev)
     _check_cuda(nblocks, "nblocks", 1, None, dev)
-    _check_cuda(counters, "counters", 1, None, dev)
-    if counters.shape[0] != c - 1:
-        raise ValueError(f"counters has {counters.shape[0]} entries, expected {c - 1}")
+    _check_cuda(scratch, "scratch", 1, None, dev)
+    if scratch.shape[0] < _scratch_words(k):
+        raise ValueError(f"scratch has {scratch.shape[0]} words, too few for {k} positions")
     if k == 0:
         return
     pos_t = torch.from_numpy(pos.astype(np.int32)).to(dev)
     lib = _lib()
     with torch.cuda.device(dev):
         rc = lib.mkv_path_rehash(st, blocks.data_ptr(), nblocks.data_ptr(), pos_t.data_ptr(),
-                                 k, blocks.shape[1], counters.data_ptr(), _stream(dev))
+                                 k, blocks.shape[1], PATH_WIDTH, _path_top(c),
+                                 scratch.data_ptr(), _stream(dev))
         _check_rc(lib, rc, "path_rehash")
         LAUNCHES["path_rehash"] += 1
+        PATH_KS[k] += 1
 
 
 def promotion_chain_cuda(levels: list[torch.Tensor], n: int) -> torch.Tensor:
@@ -186,3 +257,26 @@ def promotion_chain_cuda(levels: list[torch.Tensor], n: int) -> torch.Tensor:
         _check_rc(lib, rc, "promotion_chain")
         LAUNCHES["promotion_chain"] += 1
     return out
+
+
+def hash_chain_cuda(inp: torch.Tensor, d: int, nblk: int = 0) -> tuple[torch.Tensor, int, int]:
+    """Measurement only, never on a serving path and not counted in
+    ``LAUNCHES``: one warp hashes a leaf of nblk blocks and then a dependent
+    chain of d node hashes in registers (``hash_chain_kernel``, the
+    unrolled node hash). Takes [32, 16] int32 rows (x, y) on a CUDA device;
+    returns the [32, 8] results (== ``hash_chain``), the SM clock cycles and
+    the nanoseconds of the chain. Synchronises."""
+    dev = inp.device
+    _check_cuda(inp, "inp", 2, 16, dev)
+    if inp.shape[0] != 32 or d < 0 or nblk < 0:
+        raise ValueError(f"expected [32, 16] rows, d >= 0 and nblk >= 0, got "
+                         f"{tuple(inp.shape)}, d={d}, nblk={nblk}")
+    out = torch.empty((32, 8), dtype=torch.int32, device=dev)
+    timing = torch.zeros(2, dtype=torch.int64, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        rc = lib.mkv_hash_chain(inp.data_ptr(), nblk, d, out.data_ptr(), timing.data_ptr(),
+                                _stream(dev))
+        _check_rc(lib, rc, "hash_chain")
+    cycles, ns = timing.tolist()
+    return out, int(cycles), int(ns)

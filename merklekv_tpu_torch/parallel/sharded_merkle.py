@@ -59,6 +59,7 @@ from merklekv_tpu_torch.merkle.incremental import _reduce_levels
 from merklekv_tpu_torch.ops.dispatch import (
     build_levels,
     hash_blocks,
+    path_scratch,
     promotion_chain,
     rehash_paths,
 )
@@ -466,7 +467,7 @@ def sharded_scatter(shard_levels: list, top: list, counters: list, blocks: np.nd
     runs one fused ``path_rehash`` launch over its local levels (one-leaf
     shards write their leaf), in place; then the touched shard roots are
     copied into the top tree's level 0 and the top tree is reduced again.
-    ``counters[s]`` is shard s's arrival scratch, made here when missing.
+    ``counters[s]`` is shard s's path-rehash scratch, made here when missing.
     Returns the new top levels."""
     d = len(shard_levels)
     l = shard_levels[0][0].shape[0]
@@ -481,7 +482,7 @@ def sharded_scatter(shard_levels: list, top: list, counters: list, blocks: np.nd
             lv[0].copy_(hash_blocks(blk, nb))
         else:
             if counters[s] is None:
-                counters[s] = torch.zeros(l - 1, dtype=torch.int32, device=dev)
+                counters[s] = path_scratch(l, dev)
             rehash_paths(lv, counters[s], blk, nb, pos[a:b] - s * l)
         top[0][s : s + 1].copy_(lv[-1])
     return _reduce_levels(top[0])

@@ -159,6 +159,14 @@ def test_sharded_state_on_card_matches_single_device(dev, n):
 
 
 PATH_C = 4096
+
+
+def _zipf(rng, c, k):
+    """Up to k positions drawn Zipf-skewed over the leaf index: dense at the
+    left end, sparse to the right."""
+    return sorted(set((np.minimum(rng.zipf(1.2, size=k), c) - 1).tolist()))
+
+
 PATH_CASES = {
     "k1": lambda rng: [1234],
     "sibling_pair": lambda rng: [100, 101],
@@ -166,28 +174,88 @@ PATH_CASES = {
     "one_subtree": lambda rng: list(range(1024, 1536)),
     "every_leaf": lambda rng: list(range(PATH_C)),
     "random_257": lambda rng: sorted(rng.choice(PATH_C, size=257, replace=False)),
+    "zipf": lambda rng: _zipf(rng, PATH_C, 2000),
+    "one_per_256_leaf_subtree": lambda rng: [256 * j + rng.randint(256) for j in range(16)],
+    "one_per_16_leaf_subtree": lambda rng: [16 * j + rng.randint(16) for j in range(256)],
 }
+# (chunk width, top-level width): the kernel's own, and narrow ones that cut
+# a small batch into many blocks with shared nodes below the top.
+PATH_SHAPES = [(64, 128), (2, 2), (4, 16)]
 
 
-@pytest.mark.parametrize("case", sorted(PATH_CASES))
-def test_path_rehash_kernel_matches_plain(dev, case):
-    """The fused kernel on one copy of the levels, its plain version on
-    another: every level bit for bit, the counters zero again."""
-    rng = np.random.RandomState(sorted(PATH_CASES).index(case))
-    levels = _reduce_levels(_words(1, (PATH_C, 8), dev))
+def _rehash_both(dev, levels, pos, rng):
+    """One launch on ``levels`` and the plain version on a copy: every
+    level bit for bit, one launch counted, the scratch zero again."""
     ref = [lv.clone() for lv in levels]
-    pos = np.asarray(PATH_CASES[case](rng), np.int64)
     k = len(pos)
-    blocks = _words(2, (k, 2, 16), dev)
+    blocks = _words(int(rng.randint(1 << 30)), (k, 2, 16), dev)
     nblocks = torch.from_numpy(rng.randint(0, 3, size=k).astype(np.int32)).to(dev)
-    counters = torch.zeros(PATH_C - 1, dtype=torch.int32, device=dev)
+    scratch = mp.path_scratch(levels[0].shape[0], dev)
     before = sc.LAUNCHES["path_rehash"]
-    mp.path_rehash_cuda(levels, counters, blocks, nblocks, pos)
+    mp.path_rehash_cuda(levels, scratch, blocks, nblocks, pos)
     assert sc.LAUNCHES["path_rehash"] == before + 1
     mp.path_rehash(ref, blocks, nblocks, pos)
     for lvl, (got, want) in enumerate(zip(levels, ref)):
-        assert torch.equal(got, want), (case, lvl)
-    assert not counters.any()
+        assert torch.equal(got, want), (list(pos)[:8], lvl)
+    assert not scratch.any()
+
+
+def _padded(msg: bytes) -> np.ndarray:
+    """One SHA-256-padded message as [blocks, 16] uint32 words."""
+    padded = msg + b"\x80" + b"\x00" * ((55 - len(msg)) % 64) + (8 * len(msg)).to_bytes(8, "big")
+    return np.frombuffer(padded, ">u4").astype(np.uint32).reshape(-1, 16)
+
+
+def _rehash_vs_hashlib(dev, c, masks, rng):
+    """For each position mask of a c-leaf tree: one launch on the levels,
+    every level against hashlib's tree over the new leaves, the scratch
+    zero again."""
+    leaves = [hashlib.sha256(rng.bytes(8)).digest() for _ in range(c)]
+    rows = [np.stack([np.frombuffer(d, ">u4") for d in leaves]).astype(np.uint32)]
+    while len(rows[-1]) > 1:
+        cur = [r.astype(">u4").tobytes() for r in rows[-1]]
+        rows.append(np.stack([np.frombuffer(hashlib.sha256(cur[i] + cur[i + 1]).digest(), ">u4")
+                              for i in range(0, len(cur), 2)]).astype(np.uint32))
+    levels = [torch.from_numpy(r.view(np.int32)).to(dev) for r in rows]
+    scratch = mp.path_scratch(c, dev)
+    for mask in masks:
+        pos = np.array([i for i in range(c) if int(mask) >> i & 1], np.int64)
+        msgs = [rng.bytes(int(rng.randint(0, 120))) for _ in pos]
+        blocks = np.zeros((len(pos), 2, 16), np.uint32)
+        nblocks = np.zeros(len(pos), np.int32)
+        for i, m in enumerate(msgs):
+            w = _padded(m)
+            blocks[i, : len(w)] = w
+            nblocks[i] = len(w)
+            leaves[pos[i]] = hashlib.sha256(m).digest()
+        mp.path_rehash_cuda(levels, scratch, torch.from_numpy(blocks.view(np.int32)).to(dev),
+                            torch.from_numpy(nblocks).to(dev), pos)
+        want = leaves
+        for lvl, got in enumerate(levels):
+            assert plain.digests_to_bytes(got.cpu().numpy().view(np.uint32)) == want, (mask, lvl)
+            want = [hashlib.sha256(want[i] + want[i + 1]).digest() for i in range(0, len(want) - 1, 2)]
+        assert not scratch.any()
+
+
+@pytest.mark.parametrize("shape", PATH_SHAPES)
+@pytest.mark.parametrize("case", sorted(PATH_CASES) + [f"every_subset_depth_{d}" for d in range(1, 7)])
+def test_path_rehash_kernel_matches_plain(dev, case, shape, monkeypatch):
+    """The path-rehash kernel at the kernel's chunk width and top and at
+    narrow ones. On 4096 leaves: one launch on the levels, the plain version
+    on a copy, every level bit for bit. On the small trees of 2 to 64
+    leaves: every position subset up to 8 leaves and 300 random ones above,
+    each against hashlib's tree. The scratch is zero again after each."""
+    monkeypatch.setattr(mp, "PATH_WIDTH", shape[0])
+    monkeypatch.setattr(mp, "PATH_TOP_NODES", shape[1])
+    rng = np.random.RandomState(sorted(PATH_CASES).index(case) if case in PATH_CASES else 99)
+    if case in PATH_CASES:
+        levels = _reduce_levels(_words(1, (PATH_C, 8), dev))
+        _rehash_both(dev, levels, np.asarray(PATH_CASES[case](rng), np.int64), rng)
+        return
+    c = 1 << int(case.rsplit("_", 1)[1])
+    masks = range(1, 1 << c) if c <= 8 else [
+        (int(x) & ((1 << c) - 1)) or 1 for x in rng.randint(1, 1 << 62, size=300)]
+    _rehash_vs_hashlib(dev, c, masks, rng)
 
 
 def test_promotion_chain_kernel_matches_plain(dev):
@@ -199,17 +267,26 @@ def test_promotion_chain_kernel_matches_plain(dev):
         assert torch.equal(got, mp.promotion_chain(levels, n)), n
 
 
+@pytest.mark.parametrize("d,nblk", [(0, 0), (12, 0), (21, 0), (20, 1), (3, 2)])
+def test_hash_chain_kernel_matches_plain(dev, d, nblk):
+    inp = _words(d + nblk, (32, 16), dev)
+    got, cycles, ns = mp.hash_chain_cuda(inp, d, nblk)
+    assert torch.equal(got, mp.hash_chain(inp, d, nblk))
+    assert cycles >= 0 and ns >= 0
+
+
 def test_value_batch_is_one_fused_launch(dev):
     items = {b"sk%04d" % i: b"v%d" % i for i in range(300)}
     card = DeviceMerkleState.from_items(items.items())
     cpu = DeviceMerkleState.from_items(items.items(), device="cpu")
     batch = [(b"sk%04d" % i, b"w%d" % i) for i in (0, 1, 7, 150, 299)]
-    before = dict(sc.LAUNCHES)
+    before, ks = dict(sc.LAUNCHES), mp.PATH_KS.copy()
     card.apply(batch)
     card.flush_pending()
     delta = {name: sc.LAUNCHES[name] - before[name] for name in before}
     assert delta == {"leaf": 0, "node_level": 0, "node_pairs": 0,
                      "path_rehash": 1, "promotion_chain": 0}
+    assert mp.PATH_KS - ks == {len(batch): 1}
     cpu.apply(batch)
     assert card.root_hex() == cpu.root_hex()
     assert sc.LAUNCHES["promotion_chain"] == before["promotion_chain"] + 1

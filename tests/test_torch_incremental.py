@@ -16,6 +16,8 @@ leaf hashing included) and the promotion chain against ``_ref_root_fn`` and
 the golden reference tree.
 """
 
+import hashlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -263,6 +265,24 @@ def test_promotion_chain_plain_matches_jax_ref_root(n):
     assert digests_to_bytes(chain.numpy().view(np.uint32)) == [lv[-1] for lv in golden]
 
 
+@pytest.mark.parametrize("d,nblk", [(0, 0), (3, 0), (0, 1), (20, 1)])
+def test_hash_chain_plain_vs_hashlib(d, nblk):
+    """The plain version of the serial-floor microkernel: a one-block leaf
+    (the row is a padded message) or the row's first half, then
+    x <- sha256(x || y) d times, y the row's second half."""
+    rng = np.random.RandomState(100 * d + nblk)
+    msgs = [rng.bytes(rng.randint(0, 56)) for _ in range(32)]
+    padded = [m + b"\x80" + bytes(55 - len(m)) + (8 * len(m)).to_bytes(8, "big") for m in msgs]
+    rows = np.stack([np.frombuffer(p, ">u4").astype(np.uint32) for p in padded])
+    got = mp.hash_chain(torch.from_numpy(rows.view(np.int32)), d, nblk).numpy().view(np.uint32)
+    for msg, row, out in zip(msgs, rows, got):
+        x = hashlib.sha256(msg).digest() if nblk else row[:8].astype(">u4").tobytes()
+        y = row[8:].astype(">u4").tobytes()
+        for _ in range(d):
+            x = hashlib.sha256(x + y).digest()
+        assert out.astype(">u4").tobytes() == x
+
+
 def test_path_rehash_rejects_unsorted_or_duplicate_positions():
     levels = _padded_levels(np.zeros((16, 8), np.uint32))
     counters = torch.zeros(15, dtype=torch.int32)
@@ -323,7 +343,7 @@ def test_failed_value_batch_is_restored_with_fresh_counters(monkeypatch):
     batch = [(k, b"again") for k in sorted(items)[:5]]
     t.apply(batch[:2])
     t.flush_pending()
-    assert t._counters is not None and t._counters.shape == (63,)
+    assert t._counters is not None and t._counters.shape == mp.path_scratch(64, CPU).shape
 
     def boom(*args):
         raise RuntimeError("CUDA kernel path_rehash failed to launch")
