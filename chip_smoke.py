@@ -66,7 +66,7 @@ Phases, one line each (an uncaught failure exits nonzero):
               ``device_degraded`` anomalies with their ``environment|code``
               kinds.
 7. kernels line — printed after phase 10; per kernel: launches on the main
-              path (phases 3 to 6 and 8 to 12, each counted from 0; phase
+              path (phases 3 to 6 and 8 to 13, each counted from 0; phase
               11's as its ranks report them, phase 12's as its node
               processes do) and, as ``launches_node``, ``launches_sharded``,
               ``launches_durable``, ``launches_multihost`` and
@@ -212,6 +212,27 @@ Phases, one line each (an uncaught failure exits nonzero):
               every node, ``blackbox --json`` over the five flight
               directories exits 0 with no device anomaly. Every process is
               killed at the end, whatever happened.
+
+13. surface — the rest of the port's public surface on the card at 1M
+              keys (config 4), in two parts. (b), run right after phase 6:
+              ``merklekv_tpu_torch.device.ladder.build_state_with_ladder``
+              with ``top_shards`` 4 over phase 9's devices, once clean
+              (rung 4, no step) and once with ``fail:shard4_*`` installed
+              (``on_step`` sees rung 4, the state lands on rung 2, on the
+              card): roots == golden after the build, a value batch and an
+              insert/delete batch, TREELEVEL slices == golden. (a), run
+              last, after the kernels line's profiler sessions (a session
+              before them left one of them with no kernel record):
+              ``merklekv_tpu_torch.utils.device_profile`` (a
+              ``torch.profiler`` trace in TensorBoard format) around a
+              ``DeviceMerkleState`` build and one value batch of 4096 with
+              a root read: the root == golden, and the trace, parsed, names
+              at least one launch each of ``leaf_kernel``,
+              ``node_level_kernel``, ``path_rehash_kernel`` and
+              ``promotion_chain_kernel`` (the counts are printed). Phase
+              5's line prints its ``tree_staleness`` flight events (count
+              and ``lag_ms``) beside its largest ``pump_lag_ms``; not
+              asserted.
 
 The last line is ``{"ok": true, "device": {...}}``. Without CUDA, or outside
 a checkout of the repository, the script exits nonzero and prints no result.
@@ -969,6 +990,7 @@ def phase_mirror(dev, seed: int, n_tree: int = TREE_KEYS, batch: int = BATCH,
     from merklekv_tpu_torch.cluster.change_event import ChangeEvent, OpKind
     from merklekv_tpu_torch.cluster.mirror import DeviceTreeMirror
     from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
+    from merklekv_tpu_torch.obs.flightrec import get_recorder
     from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
 
     rng = np.random.default_rng(seed + 2)
@@ -976,6 +998,7 @@ def phase_mirror(dev, seed: int, n_tree: int = TREE_KEYS, batch: int = BATCH,
     eng = DictEngine(items)
     golden = CpuMerkleState.from_items(items)
     base = _counters()
+    seq0 = max((ev.seq for ev in get_recorder().last(1)), default=-1)
 
     reset_launch_counts()
     m = DeviceTreeMirror(eng, device=dev)
@@ -1049,17 +1072,22 @@ def phase_mirror(dev, seed: int, n_tree: int = TREE_KEYS, batch: int = BATCH,
         raise AssertionError("the pump drained no batch")
     if launches["path_rehash"] < 1 or launches["promotion_chain"] < 1:
         raise AssertionError(f"the mirror did not run the serving kernels: {launches}")
+    # The mirror flags a stale published tree at most once per flag window.
+    stale = [ev.fields.get("lag_ms") for ev in get_recorder().last()
+             if ev.seq > seq0 and ev.kind == "tree_staleness"]
     log(f"[mirror] {n_tree} keys on rung 1: warm {warm_s:.3f} s; {batches} batches of {batch} "
         f"value updates staged with on_events: {rate:.0f} writes/s (first staging to the "
         f"published root covering the last batch, {fed_s:.3f} s over "
         f"{batches // MIRROR_CHECK_EVERY} segments); pump batches "
-        f"{delta.get('device.pump_batches', 0)}; largest pump_lag_ms {max_lag:.3f}; "
+        f"{delta.get('device.pump_batches', 0)}; largest pump_lag_ms {max_lag:.3f}, "
+        f"{len(stale)} tree_staleness flight events (lag_ms {stale}); "
         f"{checks} checks (stamped root, TREELEVEL leaf/mid/edge slices, staleness 0) == "
         f"CpuMerkleState incl. a structural batch, TRUNCATE and refill; fault counters "
         f"{bad}; scatter keys {delta.get('device.scatter_keys', 0)}, "
         f"restructure keys {delta.get('device.restructure_keys', 0)}; launches {launches}")
     return {"launches": launches, "writes_per_s": rate, "warm_s": warm_s,
-            "pump_batches": delta.get("device.pump_batches", 0), "max_lag_ms": max_lag}
+            "pump_batches": delta.get("device.pump_batches", 0), "max_lag_ms": max_lag,
+            "staleness_lag_ms": stale}
 
 
 class _QueryWatch:
@@ -1284,6 +1312,129 @@ def phase_fault_drill(dev, seed: int, n_keys: int = DRILL_KEYS) -> dict:
         f"{box['anomalies']}")
     return {"launches": launches, "rewarm_ms": rewarm_ms, "max_gap_ms": fail_gap * 1e3,
             "hang_call_ms": hang_call * 1e3}
+
+
+# ------------------------------------------------------- phase 13: surface
+
+TRACED_KERNELS = ("leaf_kernel", "node_level_kernel", "path_rehash_kernel",
+                  "promotion_chain_kernel")
+
+
+def surface_data(seed: int, n_tree: int, batch: int) -> tuple[list, list, list]:
+    """Phase 13's keys (config 4's), a value batch, and an insert/delete
+    batch, from the seed."""
+    rng = np.random.default_rng(seed + 13)
+    items = [(b"inc:%09d" % i, b"v%d" % i) for i in range(n_tree)]
+    update = [(b"inc:%09d" % i, b"s%d" % i) for i in rng.integers(0, n_tree, size=batch)]
+    structural = [(b"inc:%09d-x" % i, b"n%d" % i) for i in rng.integers(0, n_tree, size=batch // 2)]
+    structural += [(b"inc:%09d" % i, None) for i in rng.integers(0, n_tree, size=batch // 2)]
+    return items, update, structural
+
+
+def phase_surface(dev, seed: int, n_tree: int = TREE_KEYS, batch: int = BATCH) -> dict:
+    """13 (b): ``device.ladder.build_state_with_ladder`` over config 4's
+    keys on the card, clean and with a fault at its top rung: the rung, the
+    rungs ``on_step`` saw, and roots and slices against the golden tree."""
+    from merklekv_tpu_torch.device.ladder import build_state_with_ladder
+    from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
+    from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
+    from merklekv_tpu_torch.testing.device_faults import DeviceFaultInjector
+
+    t_phase = time.perf_counter()
+    items, update, structural = surface_data(seed, n_tree, batch)
+    golden = CpuMerkleState.from_items(items)
+    roots = [golden.root_hex()]
+    golden.apply(update)
+    roots.append(golden.root_hex())
+    golden.apply(structural)
+    roots.append(golden.root_hex())
+    rng = np.random.default_rng(seed + 14)
+    devs, distinct = shard_devices(dev)
+    top = len(devs)
+    ladder = []
+    reset_launch_counts()
+    for fault in (None, f"shard{top}_*"):
+        steps: list = []
+        inj = DeviceFaultInjector(match=fault, mode="fail").install() if fault else None
+        t = time.perf_counter()
+        try:
+            state, rung = build_state_with_ladder(
+                items, top, devices=devs, on_step=lambda r, e: steps.append(r))
+            sync_all(devs)
+        finally:
+            if inj is not None:
+                inj.uninstall()
+        build_s = time.perf_counter() - t
+        want = (top, []) if fault is None else (top // 2, [top])
+        if (rung, steps) != want:
+            raise AssertionError(f"ladder with fault {fault}: rung {rung}, steps {steps}, "
+                                 f"expected {want}")
+        got = [state.root_hex()]
+        state.apply(update)
+        got.append(state.root_hex())
+        state.apply(structural)
+        got.append(state.root_hex())
+        if got != roots:
+            raise AssertionError(f"ladder state on rung {rung} (fault {fault}) left the golden "
+                                 f"tree: {[g == r for g, r in zip(got, roots)]}")
+        _check_serving(state, golden, rng, f"the ladder build on rung {rung}")
+        ladder.append({"fault": fault, "rung": rung, "steps": steps, "build_s": build_s})
+        del state
+    launches = dict(LAUNCHES)
+    if min(launches[k] for k in MAIN_PATH_KERNELS) < 1:
+        raise AssertionError(f"the ladder builds missed a main-path kernel: {launches}")
+    wall_s = time.perf_counter() - t_phase
+    log(f"[surface] (b) build_state_with_ladder, top_shards {top} over "
+        f"{'distinct cards' if distinct else f'{top} x {dev}'}: "
+        + "; ".join(f"fault {d['fault']}: rung {d['rung']}, on_step rungs {d['steps']}, "
+                    f"{d['build_s']:.3f} s" for d in ladder)
+        + f"; roots == golden after the build, a value batch and an insert/delete batch, "
+          f"TREELEVEL slices == golden; launches {launches}; phase {wall_s:.1f} s")
+    return {"launches": launches, "ladder": ladder, "root": roots[1], "seconds": wall_s}
+
+
+def phase_profile(dev, seed: int, want_root: str, n_tree: int = TREE_KEYS,
+                  batch: int = BATCH) -> dict:
+    """13 (a), after the script's other profiler sessions:
+    ``utils.device_profile`` around a 1M-key build and one value batch with
+    a root read; the kernels its trace names. Run before the kernels line's
+    sessions, it left one of them with no kernel record (torch 2.11)."""
+    import glob
+    import os
+    import tempfile
+
+    from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState
+    from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
+    from merklekv_tpu_torch.utils import device_profile as profile_trace
+
+    items, update, _ = surface_data(seed, n_tree, batch)
+    sync()
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="mkv-profile-") as logdir:
+        t = time.perf_counter()
+        with profile_trace(logdir):
+            st = DeviceMerkleState.from_items(items, device=dev)
+            st.apply(update)
+            root = st.root_hex()
+            sync()
+        prof_s = time.perf_counter() - t
+        traces = glob.glob(os.path.join(logdir, "*.pt.trace.json"))
+        if len(traces) != 1:
+            raise AssertionError(f"device_profile wrote {os.listdir(logdir)}, not one trace")
+        trace_kb = os.path.getsize(traces[0]) / 1e3
+        with open(traces[0]) as f:
+            names = [ev.get("name", "") for ev in json.load(f)["traceEvents"]
+                     if ev.get("cat") == "kernel"]
+    traced = {k: sum(k in name for name in names) for k in TRACED_KERNELS}
+    launches = dict(LAUNCHES)
+    if root != want_root:
+        raise AssertionError("the profiled build and batch root differs from the golden tree")
+    if min(traced.values()) < 1:
+        raise AssertionError(f"the device_profile trace lacks a main-path kernel: {traced}")
+    log(f"[surface] (a) device_profile around a {n_tree}-key build and a batch of {batch}: "
+        f"{prof_s:.3f} s, trace {trace_kb:.1f} kB; kernel launches in the trace {traced} "
+        f"(counted {launches}); root == golden")
+    return {"traced": traced, "seconds": prof_s}
 
 
 # ------------------------------------------------------- phase 9: sharded
@@ -3020,7 +3171,7 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
         ("node_pairs", "sha256_kernels.cu", "merklekv_tpu/ops/sha256_pallas.py:250",
          "node_pairs_kernel",
          lambda: node_pairs_cuda(pairs_l, pairs_r), lambda: plain.sha256_node_pairs(pairs_l, pairs_r),
-         3 * BATCH * 32, BATCH * LOGIC_NODE, BATCH * ADDS_NODE, None,
+         3 * BATCH * 32, BATCH * LOGIC_NODE, BATCH * ADDS_NODE, (1, 0),
          f"[{BATCH}, 8] x 2", 200),
         ("path_rehash", "merkle_paths.cu", "merklekv_tpu/ops/sha256_pallas.py:250",
          "path_rehash_kernel",
@@ -3040,9 +3191,9 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
          f"n={TREE_KEYS} on 2^{depth}, {even} node hashes", 200),
     ]
     # Device times first, each in its own profiler session; then the serial
-    # floors of the two serving kernels: the root's path is a leaf of the
-    # batch's one block and `depth` node hashes, the chain `even` node
-    # hashes, each at the fastest node hash's pace.
+    # floors: the root's path is a leaf of the batch's one block and `depth`
+    # node hashes, the chain `even` node hashes, and each pair of the pairs
+    # kernel one node hash, each at the fastest node hash's pace.
     measured = [profiled_kernel_ms(row[4], row[3], row[-1]) for row in rows]
     floors = {}
     for row in rows:
@@ -3181,13 +3332,15 @@ def main() -> int:
     srv = run_phase(ks, "serving", phase_serving, dev, args.seed)
     mir = run_phase(ks, "mirror", phase_mirror, dev, args.seed)
     drill = run_phase(ks, "drill", phase_fault_drill, dev, args.seed)
+    sfc = run_phase(ks, "surface", phase_surface, dev, args.seed)
     entry = phase_node_entry(args.seed)
     node = run_phase(ks, "node", phase_node_sync, args.seed)
     dur = run_phase(ks, "durable", phase_durable, args.seed)
     part = phase_partitions(args.seed)
     ks["partitions"] = part["path_ks"]
-    phases = {"rebuild": reb, "serving": srv, "mirror": mir, "drill": drill, "node": node,
-              "sharded": shd, "durable": dur, "multihost": mh, "partitions": part}
+    phases = {"rebuild": reb, "serving": srv, "mirror": mir, "drill": drill, "surface": sfc,
+              "node": node, "sharded": shd, "durable": dur, "multihost": mh,
+              "partitions": part}
     launches = {k: sum(ph["launches"][k] for ph in phases.values()) for k in srv["launches"]}
     if min(launches[name] for name in MAIN_PATH_KERNELS) < 1:
         raise AssertionError(f"a kernel was never launched on the main path: {launches}")
@@ -3203,12 +3356,16 @@ def main() -> int:
     device_profile("rebuild+diff 10M x 8", reb.pop("forward"), 3)
     batch = srv.pop("batch")
     prof = device_profile("serving batch of 4096 + root read", batch, 5)
+    sfc_prof = phase_profile(dev, args.seed, sfc["root"])
     log(f"[summary] rebuild+diff 10M x 8: {reb['median_s'] * 1e3:.3f} ms, "
         f"{reb['keys_per_s']:.0f} keys/s; serving 1M: {srv['writes_per_s']:.0f} writes/s "
         f"(guarded), {prof['device_ms']:.4f} ms device and {prof['kernels']:.1f} kernel "
         f"launches + {prof['copies']:.1f} copies per batch of {BATCH} + root read; mirror 1M: "
         f"warm {mir['warm_s']:.3f} s, {mir['writes_per_s']:.0f} writes/s, "
-        f"{mir['pump_batches']} pump batches, largest pump lag {mir['max_lag_ms']:.3f} ms; "
+        f"{mir['pump_batches']} pump batches, largest pump lag {mir['max_lag_ms']:.3f} ms, "
+        f"{len(mir['staleness_lag_ms'])} tree_staleness events; surface: trace "
+        f"{sfc_prof['traced']}, profiled {sfc_prof['seconds']:.3f} s, ladder rungs "
+        f"{[d['rung'] for d in sfc['ladder']]}, ladder phase {sfc['seconds']:.1f} s; "
         f"drill: re-warms {', '.join(f'{ms:.1f}' for ms in drill['rewarm_ms'])} ms, longest query gap "
         f"{drill['max_gap_ms']:.1f} ms, longest query under hang {drill['hang_call_ms']:.1f} ms; "
         f"node 1M: load over TCP {entry['load_s']:.3f} s, warm {entry['warm_s']:.3f} s (in-process "

@@ -8,4 +8,12 @@ are hand-written CUDA in ``csrc/``, built with ``nvcc`` at first use; the
 native engine and server are the C++ copy in ``native/``, built with ``g++``
 at first use. ``python -m merklekv_tpu_torch`` starts a node or runs one of
 the JAX package's subcommands (``__main__``).
+
+The code below is a copy of ``merklekv_tpu/__init__.py``: the package
+exports ``__version__`` (``version.py``), and each subpackage's
+``__init__`` exports the names of its JAX counterpart.
 """
+
+from merklekv_tpu_torch.version import __version__
+
+__all__ = ["__version__"]

@@ -1,7 +1,8 @@
 """Degradation ladder: degrade instead of the all-or-nothing cliff to the
 native fallback (copy of ``merklekv_tpu/device/ladder.py``:
 ``rung_sequence`` and ``DeviceBackendLadder``, with a torch
-``build_state_for_rung`` and a ladder that can end at rung 1).
+``build_state_for_rung``, and a ladder and ``build_state_with_ladder`` that
+can end at rung 1).
 
 Rungs, top to bottom, for a resolved shard width N:
 
@@ -20,6 +21,10 @@ over the first N of the caller's devices, rung 1 is one device
 rung 1: a mirror on the card uses it, so its work never moves to the host
 (a sharded rung that fails steps down to N/2 ... 1, all on the card), while
 a mirror built on the CPU keeps the JAX package's full ladder.
+``build_state_with_ladder`` follows the same rule: on the card it ends at
+rung 1 and raises when every rung fails (the JAX function cannot fail,
+since its CPU rung cannot); when every device it is given is the CPU it
+ends at rung 0.
 
 Policy:
 
@@ -38,7 +43,9 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Iterable, Optional
+from typing import Callable, Iterable, Optional
+
+import torch
 
 from merklekv_tpu_torch.cluster.retry import DEVICE_HEAL, RetryPolicy
 from merklekv_tpu_torch.obs.metrics import get_metrics
@@ -47,6 +54,7 @@ __all__ = [
     "DeviceBackendLadder",
     "rung_sequence",
     "build_state_for_rung",
+    "build_state_with_ladder",
 ]
 
 
@@ -78,6 +86,41 @@ def build_state_for_rung(rung: int, items: Iterable, device=None, devices=None):
     from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
 
     return CpuMerkleState.from_items(items)
+
+
+def build_state_with_ladder(
+    items,
+    top_shards: int,
+    devices=None,
+    on_step: Optional[Callable[[int, BaseException], None]] = None,
+):
+    """Build a serving state at the highest rung that works, walking the
+    ladder down on failure. Returns ``(state, rung)``; ``on_step(rung,
+    exc)`` is called for every rung that failed.
+
+    Rung N >= 2 shards over the first N of ``devices`` (default: every card
+    of the host), rung 1 runs on the first of them (default: CUDA). When
+    every device is the CPU the ladder ends at rung 0, the CPU golden tree,
+    which cannot fail, as in the JAX function. Otherwise it ends at rung 1,
+    so the work never moves to the host, and the error of rung 1 is raised
+    when it fails too."""
+    items = list(items)
+    seq = rung_sequence(top_shards)
+    if devices is None or any(torch.device(d).type != "cpu" for d in devices):
+        seq.pop()
+    device = None if devices is None else devices[0]
+    last: Optional[Exception] = None
+    for rung in seq:
+        try:
+            return (
+                build_state_for_rung(rung, items, device=device, devices=devices),
+                rung,
+            )
+        except Exception as e:
+            last = e
+            if on_step is not None:
+                on_step(rung, e)
+    raise last
 
 
 class DeviceBackendLadder:

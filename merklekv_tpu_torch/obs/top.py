@@ -42,7 +42,6 @@ __all__ = [
     "NodeSample",
     "sample_node",
     "render_table",
-    "render_events_pane",
     "render_router_pane",
     "main",
 ]

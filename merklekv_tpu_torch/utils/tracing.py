@@ -1,8 +1,9 @@
 """Structured tracing + metrics for the control plane.
 
 A copy of ``merklekv_tpu/utils/tracing.py``, its imports pointed at the
-port's modules, without ``device_profile`` (a ``jax.profiler`` trace): the
-node's ``PROFILE`` verb captures a ``torch.profiler`` trace itself.
+port's modules, with a ``device_profile`` over ``torch.profiler`` in place
+of the ``jax.profiler`` one. The node's ``PROFILE`` verb keeps its own
+capture (its reply names the trace file it writes).
 
 The reference has no tracing at all — just env_logger text logs, with
 structured tracing/Prometheus listed as an open roadmap issue
@@ -18,7 +19,11 @@ subsystem imports:
   (obs.trace) so a cycle's spans correlate in the log stream;
 - ``get_metrics()``: the process-wide obs registry (counters + spans +
   histograms + gauges) that subsystems bump; snapshot() for dashboards
-  and the test suite.
+  and the test suite;
+- ``device_profile(logdir)``: a ``torch.profiler`` trace around a device
+  workload, written to ``logdir`` in TensorBoard format (one ``with``
+  block; inspect with TensorBoard's PyTorch profiler plugin or
+  ``chrome://tracing``).
 """
 
 from __future__ import annotations
@@ -35,7 +40,7 @@ from merklekv_tpu_torch.obs.trace import current_cycle_id
 
 logger = logging.getLogger("merklekv")
 
-__all__ = ["span", "Metrics", "get_metrics"]
+__all__ = ["span", "Metrics", "get_metrics", "device_profile"]
 
 
 @contextmanager
@@ -72,3 +77,18 @@ def span(name: str, **fields) -> Iterator[dict]:
             )
         logger.info(json.dumps(record, default=str))
 
+
+@contextmanager
+def device_profile(logdir: str) -> Iterator[None]:
+    """torch.profiler trace around a device workload (TensorBoard format).
+
+    Records CPU activity always and CUDA activity whenever a CUDA device is
+    present; the workload runs where its own tensors are."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)):
+        yield

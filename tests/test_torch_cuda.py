@@ -9,6 +9,7 @@ machine without JAX too (bypassing ``tests/conftest.py``, which imports it):
 """
 
 import hashlib
+import json
 import threading
 
 import numpy as np
@@ -17,10 +18,12 @@ import torch
 
 from merklekv_tpu_torch.device.guard import DispatchGuard
 from merklekv_tpu_torch.merkle import torch_engine as te
+from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
 from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState, _reduce_levels
 from merklekv_tpu_torch.ops import merkle_paths as mp
 from merklekv_tpu_torch.ops import sha256 as plain
 from merklekv_tpu_torch.ops import sha256_cuda as sc
+from merklekv_tpu_torch.utils import device_profile
 
 pytestmark = pytest.mark.cuda
 
@@ -464,3 +467,22 @@ def test_two_ranks_sharing_cuda0_over_gloo(dev):
     golden = build_levels([leaf_hash(k, b"val-%d" % i) for i, k in enumerate(keys)])[-1][0].hex()
     for out in outs:
         assert f"ROOT {golden}" in out and "COUNTS 0,5,0" in out and "MASKS ok" in out
+
+
+def test_device_profile_traces_the_kernels(dev, tmp_path):
+    """``utils.device_profile`` records the card's kernels: a build and a
+    value batch with a root read, its TensorBoard trace parsed."""
+    items = [(b"p%05d" % i, b"v%d" % i) for i in range(1000)]
+    with device_profile(str(tmp_path)):
+        st = DeviceMerkleState.from_items(items, device=dev)
+        st.apply([(b"p00001", b"changed")])
+        root = st.root_hex()
+        torch.cuda.synchronize()
+    items[1] = (b"p00001", b"changed")
+    assert root == CpuMerkleState.from_items(items).root_hex()
+    (trace,) = tmp_path.glob("*.pt.trace.json")
+    names = [ev.get("name", "") for ev in json.loads(trace.read_text())["traceEvents"]
+             if ev.get("cat") == "kernel"]
+    for kernel in ("leaf_kernel", "node_level_kernel", "path_rehash_kernel",
+                   "promotion_chain_kernel"):
+        assert any(kernel in n for n in names), (kernel, sorted(set(names))[:20])

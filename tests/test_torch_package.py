@@ -11,6 +11,12 @@
 - A module copied from the JAX package says so in its docstring, naming
   the file it copies (partitioned mode, rebalancing, bootstrap and the
   request plane among them).
+- Each copy equals its source once ``merklekv_tpu_torch`` is read as
+  ``merklekv_tpu`` and docstrings and comments are dropped (Python: the
+  two syntax trees; C++: the lines outside comments), so the JAX package's
+  tests cover the copy too. The copies that differ in code are listed in
+  ``DIVERGES`` with the reason; a listed copy that has become equal fails,
+  so the list cannot go stale.
 """
 
 import ast
@@ -66,6 +72,19 @@ print("ok", len(sys.argv) - 1)
 # Modules copied, whole or in part, from the JAX package, and what each
 # docstring names as its source.
 COPIES = {
+    "merklekv_tpu_torch": "merklekv_tpu/__init__.py",
+    "merklekv_tpu_torch.cluster": "merklekv_tpu/cluster/__init__.py",
+    "merklekv_tpu_torch.device": "merklekv_tpu/device/__init__.py",
+    "merklekv_tpu_torch.merkle": "merklekv_tpu/merkle/__init__.py",
+    "merklekv_tpu_torch.obs": "merklekv_tpu/obs/__init__.py",
+    "merklekv_tpu_torch.ops": "merklekv_tpu/ops/__init__.py",
+    "merklekv_tpu_torch.testing": "merklekv_tpu/testing/__init__.py",
+    "merklekv_tpu_torch.utils": "merklekv_tpu/utils/__init__.py",
+    "merklekv_tpu_torch.merkle.encoding": "merklekv_tpu.merkle.encoding",
+    "merklekv_tpu_torch.merkle.cpu": "merklekv_tpu.merkle.cpu",
+    "merklekv_tpu_torch.merkle.packing": "merklekv_tpu.merkle.packing",
+    "merklekv_tpu_torch.obs.top": "merklekv_tpu/obs/top.py",
+    "merklekv_tpu_torch.obs.blackbox": "merklekv_tpu/obs/blackbox.py",
     "merklekv_tpu_torch.utils.errorkind": "merklekv_tpu/utils/errorkind.py",
     "merklekv_tpu_torch.utils.tracing": "merklekv_tpu/utils/tracing.py",
     "merklekv_tpu_torch.obs.metrics": "merklekv_tpu/obs/metrics.py",
@@ -111,6 +130,33 @@ COPIES = {
     "merklekv_tpu_torch.requestplane.invalidation": "merklekv_tpu/requestplane/invalidation.py",
     "merklekv_tpu_torch.requestplane.router": "merklekv_tpu/requestplane/router.py",
 }
+# Copies that differ from their source in code, and why. Every other copy
+# equals its source (see test_copy_equals_its_source).
+DIVERGES = {
+    "merklekv_tpu_torch.cluster.mirror": "torch devices; on the card the ladder ends at rung 1 "
+                                         "and every failed drain invalidates and re-warms",
+    "merklekv_tpu_torch.cluster.node": "the node's torch device; a failed tree query answers an "
+                                       "error, not the host tree; PROFILE captures torch.profiler",
+    "merklekv_tpu_torch.cluster.rebalance": "the moving range's root and the joiner's snapshot "
+                                            "check run on the device",
+    "merklekv_tpu_torch.cluster.sync": "device failures in the leaf pass, masks and diff are "
+                                       "counted and raised, never redone on the host",
+    "merklekv_tpu_torch.device.guard": "names its worker thread in GUARD_THREAD_NAME, which the "
+                                       "port's tests read",
+    "merklekv_tpu_torch.device.ladder": "torch build_state_for_rung; on the card the ladder and "
+                                        "build_state_with_ladder end at rung 1",
+    "merklekv_tpu_torch.native_bindings": "builds the port's native copy with g++ into "
+                                          "build/native/, never into the source tree",
+    "merklekv_tpu_torch.storage.snapshot": "a device failure in the snapshot root is raised, "
+                                           "not recomputed on the host",
+    "merklekv_tpu_torch.storage.walcheck": "roots are recomputed on the node's device by "
+                                           "default (--engine tpu)",
+    "merklekv_tpu_torch.testing.device_faults": "the default corruption flips a bit of a list "
+                                                "of level tensors",
+    "merklekv_tpu_torch.utils.tracing": "device_profile over torch.profiler, not jax.profiler",
+}
+# The native runtime: every C++ file of the port is a copy of the JAX one.
+NATIVE_COPIES = sorted(p.name for p in (PKG / "native").iterdir())
 # Scripts the torch tests spawn; held to the same import rules.
 WORKERS = [ROOT / "tests" / "torch_multihost_worker.py"]
 
@@ -131,6 +177,72 @@ def test_every_module_imports_without_jax_or_the_jax_package():
 def test_copied_module_docstring_names_its_source(module):
     doc = " ".join((importlib.import_module(module).__doc__ or "").split())
     assert "copy of" in doc and f"``{COPIES[module]}" in doc, (module, doc[:200])
+
+
+def _source_path(module: str) -> Path:
+    src = COPIES[module]
+    if src.endswith(".py"):
+        return ROOT / src
+    return ROOT / (src.replace(".", "/") + ".py")
+
+
+def _python_code(path: Path) -> str:
+    """The syntax tree of a module with the package name read as
+    ``merklekv_tpu`` and every docstring dropped (comments never reach it)."""
+    tree = ast.parse(path.read_text().replace("merklekv_tpu_torch", "merklekv_tpu"))
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if (body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant)
+                    and isinstance(body[0].value.value, str)):
+                node.body = body[1:] or [ast.Pass()]
+    return ast.dump(tree)
+
+
+def _cxx_code(path: Path) -> list[str]:
+    """The non-blank lines of a C++ file outside ``//`` and ``/* */``
+    comments (string and character literals kept whole), right-stripped."""
+    text, out, i = path.read_text(), [], 0
+    n = len(text)
+    while i < n:
+        c = text[i]
+        if text.startswith("//", i):
+            i = text.find("\n", i)
+            i = n if i < 0 else i
+        elif text.startswith("/*", i):
+            i = text.index("*/", i + 2) + 2
+        elif c in "\"'":
+            j = i + 1
+            while text[j] != c:
+                j += 2 if text[j] == "\\" else 1
+            out.append(text[i:j + 1])
+            i = j + 1
+        else:
+            out.append(c)
+            i += 1
+    return [ln.rstrip() for ln in "".join(out).splitlines() if ln.strip()]
+
+
+@pytest.mark.parametrize("module", sorted(COPIES))
+def test_copy_equals_its_source(module):
+    port = Path(importlib.import_module(module).__file__)
+    same = _python_code(port) == _python_code(_source_path(module))
+    if module in DIVERGES:
+        assert not same, f"{module} equals its source now: take it out of DIVERGES"
+    else:
+        assert same, f"{module} differs from {COPIES[module]} in code"
+
+
+def test_divergent_copies_are_copies():
+    assert set(DIVERGES) <= set(COPIES), sorted(set(DIVERGES) - set(COPIES))
+
+
+@pytest.mark.parametrize("name", NATIVE_COPIES)
+def test_native_copy_equals_its_source(name):
+    assert name.endswith((".cc", ".h")), name
+    port, src = PKG / "native" / name, ROOT / "merklekv_tpu" / "native" / name
+    assert port.read_text().startswith(f"// A copy of merklekv_tpu/native/{name}"), name
+    assert _cxx_code(port) == _cxx_code(src)
 
 
 @pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")) + WORKERS, ids=lambda p: p.name)
