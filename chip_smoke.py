@@ -14,7 +14,10 @@ Phases, one line each (an uncaught failure exits nonzero):
               name and power limit.
 2. kernels  — each kernel against its plain PyTorch version on the card, bit
               for bit, over several shapes (N = 1..1M, multi-block messages
-              with nblocks 0..3, odd level sizes, P = 16 and 65536), plus a
+              with nblocks 0..3, odd level sizes; the pairs kernel at P = 1,
+              3, 16, 31-33, 127-129, 4095-4097, 4 x 32 x SMs +- 1, 65,536,
+              65,537 and 2^20, three rows of each also against
+              ``hashlib``), plus a
               few hundred leaves and nodes against ``hashlib``; the
               path-rehash kernel on cloned 2^20-leaf levels for k = 1, a
               sibling pair, the first and last leaf, one whole subtree,
@@ -73,14 +76,17 @@ Phases, one line each (an uncaught failure exits nonzero):
               ``launches_partitions``, those of phases 8 to 12 alone;
               its device time (torch.profiler kernel
               time), the plain version's time, and its bound; for the two
-              serving kernels also ``serial_floor_ms``, their measured serial
+              serving kernels and the pairs kernel also
+              ``serial_floor_ms``, their measured serial
               floor: ``hash_chain_kernel`` (one warp, the fastest node hash,
               dependent hashes in registers) at the serving path's one-block
               leaf and 20 node hashes and the chain's even levels, with the
               SM clock that nvidia-smi reads meanwhile (the ``[times]``
-              lines). A ``[path k]`` line gives, per phase, the batch sizes
-              k of the path-rehash launches (largest, and launches by power
-              of two).
+              lines; the ``[times] node_pairs sweep`` line gives the pairs
+              kernel's device time, bound and share at P = 64, 512, 4096,
+              4 x 32 x SMs, 65,536 and 5,242,880). A ``[path k]`` line
+              gives, per phase, the batch sizes k of the path-rehash
+              launches (largest, and launches by power of two).
 8. node     — the node entry, at 1M keys (config 4) and only through what a
               user runs. 8a: ``python -m merklekv_tpu_torch`` spawned with
               replication on the in-process bus and anti-entropy engine
@@ -98,8 +104,10 @@ Phases, one line each (an uncaught failure exits nonzero):
               keeping 1M keys, for the script's time; half new values,
               half deleted, all older than A's writes), a bisect SYNC from
               A with B's replication off, repeated while a cycle past its
-              120 s budget left a checkpoint to resume (at most 8 cycles):
-              the keys repaired over the cycles == injected, the leaf kernel
+              120 s budget left a checkpoint to resume (at least 2 and at
+              most 8 cycles, so a resumed cycle installs its pending repairs
+              by last writer wins): the keys repaired over the cycles ==
+              injected, the leaf kernel
               ran in each cycle's leaf pass; then B's replication on, its
               mirror on rung 1, roots of A, B and the golden tree equal and
               B's TREELEVEL slices == golden; then a 3-node
@@ -329,6 +337,8 @@ ADDS_NODE = ADDS_MSG_BLOCK + ADDS_PAD_BLOCK
 # dependent node hashes in registers (phase_kernel_times), while
 # nvidia-smi samples the SM clock.
 CHAIN_RUNS = 200
+# The pairs kernel's sizes in the [times] sweep; None is 4 x 32 x SMs.
+PAIRS_SWEEP = (64, 512, 4096, None, 65536, 5 * (1 << 20))
 # Kernels the main path (phases 3 to 6 and 8) must launch; node_pairs is held
 # against its plain version in phase 2 but no longer runs on the main path.
 MAIN_PATH_KERNELS = ("leaf", "node_level", "path_rehash", "promotion_chain")
@@ -460,6 +470,17 @@ def profiled_kernel_ms(fn, kernel: str, reps: int, warmup: int = 2) -> tuple[flo
     return sum(times) / len(times) / 1e3, len(times)
 
 
+def profiled_again(fn, kernel: str, reps: int) -> tuple[float, int]:
+    """``profiled_kernel_ms``, measured once more when the profiler kept no
+    record of the kernel (torch 2.11 on the card: about one session in 200
+    of many short ones in a process); a second empty session raises."""
+    try:
+        return profiled_kernel_ms(fn, kernel, reps)
+    except AssertionError as exc:
+        log(f"[times] {exc}; measured again")
+        return profiled_kernel_ms(fn, kernel, reps)
+
+
 def path_kernel_ms(levels, scratch, blocks, nblocks, pos, reps: int) -> float:
     """Device ms per launch of the path-rehash kernel alone: CUDA events
     around ``reps`` back-to-back launches through the library's entry point
@@ -585,10 +606,20 @@ def phase_kernels(dev, rng: np.random.Generator, sizes=(1, 2, 3, 4097, 1 << 20))
     for m in (2, 3, 8, 8193, 1 << 20, (1 << 20) + 1):
         cur = rand_words(rng, (m, 8), dev)
         hold("node_level", node_level_cuda(cur), plain.sha256_node_level(cur), f"M={m}")
-    for p in (1, 3, 16, 4097, 65536, 1 << 20):
+    # The pairs kernel's launch (csrc/node_pairs.cuh) at P on each side of
+    # one warp, of one 4-warp block, of the serving batch and of one 4-warp
+    # block per SM; three rows of each against hashlib.
+    full = 4 * 32 * torch.cuda.get_device_properties(dev).multi_processor_count
+    for p in sorted({1, 3, 16, 31, 32, 33, 127, 128, 129, 4095, 4096, 4097, full - 1, full,
+                     full + 1, 65536, 65537, 1 << 20}):
         left, right = rand_words(rng, (p, 8), dev), rand_words(rng, (p, 8), dev)
-        hold("node_pairs", node_pairs_cuda(left, right), plain.sha256_node_pairs(left, right),
-             f"P={p}")
+        got = node_pairs_cuda(left, right)
+        hold("node_pairs", got, plain.sha256_node_pairs(left, right), f"P={p}")
+        rows = sorted({0, p // 2, p - 1})
+        msgs = torch.cat([left[rows], right[rows]], 1).cpu().numpy().view(np.uint32)
+        if plain.digests_to_bytes(got[rows].cpu().numpy().view(np.uint32)) != [
+                hashlib.sha256(m.astype(">u4").tobytes()).digest() for m in msgs]:
+            raise AssertionError(f"node_pairs kernel differs from hashlib at P={p}")
 
     # hashlib: random-byte leaves of 0..200 bytes (1-4 blocks), and nodes.
     keys = [rng.bytes(int(rng.integers(0, 40))) for _ in range(300)]
@@ -609,7 +640,8 @@ def phase_kernels(dev, rng: np.random.Generator, sizes=(1, 2, 3, 4097, 1 << 20))
         raise AssertionError("node_pairs kernel differs from hashlib")
     sync()
     log(f"[kernels] {checks} shape checks bit-exact vs plain on the card, "
-        f"300 leaves + 278 nodes exact vs hashlib (tolerance: exact equality)")
+        f"300 leaves + 278 nodes and 3 pairs of each pairs size exact vs hashlib "
+        f"(tolerance: exact equality)")
     return {"max_abs_err": errs}
 
 
@@ -2086,6 +2118,8 @@ def phase_node_sync(seed: int, n_keys: int = NODE_KEYS, batch: int = BATCH,
                 cycles.append((round(time.perf_counter() - c0, 3), rep.divergent))
             sync_s = time.perf_counter() - t
             sync_launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+            if len(cycles) < 2:
+                raise AssertionError(f"the SYNC never resumed a checkpointed cycle: {cycles}")
             injected = len(changed) + len(deleted)
             if found != injected:
                 raise AssertionError(f"SYNC found {found} divergent keys in {cycles}, "
@@ -3206,6 +3240,7 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
                 f"{f['cycles_per_hash']:.0f} SM cycles per node hash (the leaf included), "
                 f"{f['ghz']:.3f} GHz from its own timers; nvidia-smi clocks.sm "
                 f"{f['clocks_sm_mhz']} MHz")
+    sweep = node_pairs_sweep(dev, rng, floors["node_pairs"]["ms"])
     out = []
     for row, (ms, seen) in zip(rows, measured):
         name, src, repl, kname, kern, ref, nbytes, logic, adds, floor, shape, reps = row
@@ -3225,6 +3260,8 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": None, "serial_floor_ms": floor,
         })
+        if name == "node_pairs":
+            out[-1]["sweep"] = [{k: r[k] for k in ("p", "ms", "bound_ms")} for r in sweep]
     # The level kernel reads rows (2i, 2i+1) as one contiguous message; the
     # alternative is an even/odd split of the level plus the pairs kernel.
     split_ms = event_ms(
@@ -3232,6 +3269,32 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
                                 leaves[1 : 2 * p_level : 2].contiguous()), 10)
     log(f"[times] even/odd split + node_pairs at [{n}, 8]: {split_ms:.4f} ms "
         f"(node_level {out[1]['ms']:.4f} ms)")
+    return out
+
+
+def node_pairs_sweep(dev, rng: np.random.Generator, floor_ms: float) -> list:
+    """The pairs kernel's device time per launch (torch.profiler) at each P
+    of PAIRS_SWEEP (None: 4 x 32 x SMs, the widest launch that keeps one warp
+    per SM sub-partition), beside its bound: the larger of the throughput
+    bound and ``floor_ms``, one node hash by one warp (``serial_floor``)."""
+    import torch
+
+    from merklekv_tpu_torch.ops.sha256_cuda import node_pairs_cuda
+
+    full = 4 * 32 * torch.cuda.get_device_properties(dev).multi_processor_count
+    out = []
+    for p in PAIRS_SWEEP:
+        p = full if p is None else p
+        left, right = rand_words(rng, (p, 8), dev), rand_words(rng, (p, 8), dev)
+        reps = 200 if p <= 65536 else 20
+        ms, seen = profiled_again(lambda: node_pairs_cuda(left, right), "node_pairs_kernel", reps)
+        b_ms = max(bound_ms(3 * p * 32, p * LOGIC_NODE, p * ADDS_NODE), floor_ms)
+        out.append({"p": p, "ms": ms, "bound_ms": b_ms, "share": b_ms / ms, "profiled": seen,
+                    "reps": reps})
+    log(f"[times] node_pairs sweep, device ms per launch (torch.profiler), bound = max(operations "
+        f"or bytes, serial floor {floor_ms:.4f} ms), share = bound / ms: " + "; ".join(
+            f"P={r['p']} {r['ms']:.4f} ms ({r['profiled']} of {r['reps']}), bound "
+            f"{r['bound_ms']:.4f}, {100 * r['share']:.1f}%" for r in out))
     return out
 
 

@@ -32,14 +32,32 @@
 // block's K+W in constant memory (a warp-wide broadcast operand, no extra
 // instruction), fold the pad block's schedule away entirely, and touch HBM
 // once per input and output word.
+//
+// A launch too small to fill the card has another bound: one node hash is
+// about 2,300 warp instructions through one SM sub-partition's (SMSP's)
+// 16-lane integer pipe, 2.8 us for one warp alone (hash_chain_kernel,
+// merkle_paths.cu), and two warps on one SMSP take twice that. At the
+// serving batch (p = 4096), 256-thread blocks would put 2 warps on each SMSP
+// of 16 SMs and leave 116 SMs idle (5.9 us measured).
+// node_pairs_kernel therefore launches blocks of up to 4 warps, one per
+// SMSP (node_pairs.cuh): up to 128 x SMs pairs each block has an SM of
+// its own, so a small launch takes about one hash time plus the slowest
+// SM's lag. The hash is the same unrolled one as the other kernels'. The
+// leaf and level kernels keep the fixed 256-thread shape: both run on
+// levels far wider than the card in the rebuild, at their bound's pace.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "node_pairs.cuh"
 #include "sha256_core.cuh"
 
 namespace {
 
+// Threads per block of leaf_kernel and node_level_kernel: 8 warps, 2 on
+// each SMSP, enough to hide a load's latency behind another warp's rounds
+// on levels of millions of rows. node_pairs_kernel's shape is
+// mkv_pairs_shape's (node_pairs.cuh).
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ void load16(const uint4* __restrict__ src, uint32_t w[16]) {
@@ -91,12 +109,14 @@ node_level_kernel(const uint4* __restrict__ cur, uint4* __restrict__ out, int64_
   store8(out + 2 * i, s);
 }
 
-// left [p, 8], right [p, 8] -> out [p, 8] = SHA256(left[i] || right[i]).
-__global__ void __launch_bounds__(kThreads)
+// left [p, 8], right [p, 8] -> out [p, 8] = SHA256(left[i] || right[i]),
+// in blocks of the shape mkv_pairs_shape gives. Both children come in with
+// 16-byte loads before the rounds.
+__global__ void __launch_bounds__(kMkvPairsThreads)
 node_pairs_kernel(const uint4* __restrict__ left, const uint4* __restrict__ right,
                   uint4* __restrict__ out, int64_t p) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= p) return;
+  int64_t i;
+  if (!mkv_pairs_row(blockIdx.x, threadIdx.x, blockDim.x, p, &i)) return;
   uint32_t w[16], s[8];
   const uint4 l0 = left[2 * i], l1 = left[2 * i + 1];
   const uint4 r0 = right[2 * i], r1 = right[2 * i + 1];
@@ -134,10 +154,14 @@ int mkv_node_level(const void* cur, void* out, int64_t p, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-int mkv_node_pairs(const void* left, const void* right, void* out, int64_t p,
-                   void* stream) {
+int mkv_node_pairs(const void* left, const void* right, void* out, int64_t p, void* stream) {
   if (p <= 0) return 0;
-  node_pairs_kernel<<<grid_for(p), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  int64_t blocks;
+  int32_t threads;
+  mkv_pairs_shape(p, &blocks, &threads);  // a grid for every p >= 1
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
+  node_pairs_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(left), static_cast<const uint4*>(right),
       static_cast<uint4*>(out), p);
   return static_cast<int>(cudaGetLastError());

@@ -63,7 +63,7 @@ __all__ = [
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _SOURCES = ("sha256_kernels.cu", "merkle_paths.cu")
-_HEADERS = ("sha256_core.cuh", "merkle_paths.cuh")
+_HEADERS = ("sha256_core.cuh", "merkle_paths.cuh", "node_pairs.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -256,7 +256,8 @@ def node_level_cuda(cur: torch.Tensor) -> torch.Tensor:
 
 def node_pairs_cuda(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """[P, 8] x [P, 8] int32 digests -> [P, 8] SHA256(left || right)
-    (counterpart of ``node_pairs_pallas``)."""
+    (counterpart of ``node_pairs_pallas``), in blocks of up to 4 warps
+    (``csrc/node_pairs.cuh``)."""
     if _is_cpu(left, right):
         return sha256_node_pairs(left, right)
     dev = left.device

@@ -51,6 +51,29 @@ def test_kernels_match_plain_versions(dev, n):
     assert torch.equal(sc.node_pairs_cuda(left, right), plain.sha256_node_pairs(left, right))
 
 
+# The pairs kernel's launch (csrc/node_pairs.cuh) at p on each side of one
+# warp, of one 4-warp block, of the serving batch and of one 4-warp block
+# per SM. ("sms", o) stands for 4 * 32 * SMs + o, resolved on the card.
+PAIRS_EDGES = [1, 31, 32, 33, 127, 128, 129, 4095, 4096, 4097,
+               ("sms", -1), ("sms", 0), ("sms", 1), 65537, 1 << 20]
+
+
+@pytest.mark.parametrize("p", PAIRS_EDGES, ids=str)
+def test_node_pairs_kernel_at_shape_edges(dev, p):
+    if isinstance(p, tuple):
+        p = 4 * 32 * torch.cuda.get_device_properties(dev).multi_processor_count + p[1]
+    left, right = _words(p, (p, 8), dev), _words(p + 1, (p, 8), dev)
+    before = sc.LAUNCHES["node_pairs"]
+    got = sc.node_pairs_cuda(left, right)
+    assert sc.LAUNCHES["node_pairs"] == before + 1
+    assert torch.equal(got, plain.sha256_node_pairs(left, right))
+    rows = [(left[i], right[i]) for i in (0, p // 2, p - 1)]
+    want = [hashlib.sha256(b"".join(r.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
+                                    for r in pair)).digest() for pair in rows]
+    got_rows = got[[0, p // 2, p - 1]].cpu().numpy().view(np.uint32)
+    assert plain.digests_to_bytes(got_rows) == want
+
+
 def test_node_kernels_match_hashlib(dev):
     cur = _words(7, (64, 8), dev)
     rows = [r.astype(">u4").tobytes() for r in cur.cpu().numpy().view(np.uint32)]
