@@ -3301,7 +3301,9 @@ def node_pairs_sweep(dev, rng: np.random.Generator, floor_ms: float) -> list:
 def device_profile(label: str, fn, reps: int) -> dict:
     """One line: device time per call of ``fn``, the profiled wall time, the
     busy share, the device operations per call (kernels and copies), and
-    the largest of them (torch.profiler)."""
+    the largest of them (torch.profiler). The program's device spans
+    (``ae.*`` ranges over the kernels they cover) are not operations and
+    are left out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3315,7 +3317,7 @@ def device_profile(label: str, fn, reps: int) -> dict:
     by_name: dict[str, float] = {}
     kernels = copies = 0
     for ev in prof.events():
-        if ev.device_type == DeviceType.CUDA:
+        if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation:
             by_name[ev.name] = by_name.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
             if ev.name.startswith(("Memcpy", "Memset")):
                 copies += 1

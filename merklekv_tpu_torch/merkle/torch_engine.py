@@ -27,6 +27,7 @@ from merklekv_tpu_torch.merkle.packing import pack_leaves
 from merklekv_tpu_torch.ops.dispatch import build_levels, hash_blocks, hash_node_level
 from merklekv_tpu_torch.ops.sha256 import digest_to_bytes, digests_to_bytes
 from merklekv_tpu_torch.utils.torchenv import as_tensor, resolve_device, words_np
+from merklekv_tpu_torch.utils.tracing import device_span
 
 __all__ = [
     "leaf_digests",
@@ -46,12 +47,22 @@ def anti_entropy_forward(blocks, nblocks, digests, present, device=None):
     present [R, N] bool — numpy arrays or tensors (uint32 words as int32
     tensors) — moved to ``device`` (``None`` = CUDA).
     Returns (root [8] int32, masks [R, N] bool, counts [R] int32) on device.
+
+    While a profiler session records on the calling thread, the step is the
+    device span ``ae.cycle`` with the phases ``ae.leaf`` (hash every leaf),
+    ``ae.levels`` (the tree) and ``ae.diff`` (the masks and the counts) in
+    it (``utils.tracing.device_span``); the copy of a host array to the
+    device falls in the phase that reads it.
     """
     dev = resolve_device(device)
-    leaves = hash_blocks(as_tensor(blocks, dev), as_tensor(nblocks, dev))
-    root = build_levels(leaves)[-1][0]
-    masks = divergence_masks(as_tensor(digests, dev), as_tensor(present, dev, torch.bool))
-    counts = masks.sum(dim=1, dtype=torch.int32)
+    with device_span("ae.cycle", dev):
+        with device_span("ae.leaf", dev):
+            leaves = hash_blocks(as_tensor(blocks, dev), as_tensor(nblocks, dev))
+        with device_span("ae.levels", dev):
+            root = build_levels(leaves)[-1][0]
+        with device_span("ae.diff", dev):
+            masks = divergence_masks(as_tensor(digests, dev), as_tensor(present, dev, torch.bool))
+            counts = masks.sum(dim=1, dtype=torch.int32)
     return root, masks, counts
 
 

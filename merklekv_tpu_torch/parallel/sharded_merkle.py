@@ -65,6 +65,7 @@ from merklekv_tpu_torch.ops.dispatch import (
 )
 from merklekv_tpu_torch.parallel.mesh import Mesh
 from merklekv_tpu_torch.utils.torchenv import as_tensor
+from merklekv_tpu_torch.utils.tracing import device_span
 
 __all__ = [
     "sharded_tree_root",
@@ -384,19 +385,34 @@ def make_anti_entropy_step(mesh: Mesh, axis: str = "key"):
     bool, counts [R] int32), all on the axis's first device. Across
     processes the inputs are this rank's rows: root and counts cover every
     rank and are the same on each, the masks are this rank's rows.
+
+    While a profiler session records on the calling thread, a step is the
+    device span ``ae.cycle`` on the first device; in it each shard's
+    ``ae.leaf``, ``ae.levels`` (its subtree root) and ``ae.diff`` (its masks
+    and counts) on the shard's device, then ``ae.combine`` on the first
+    device (the counts' sum, the top tree, the masks' gather).
     """
     devs = mesh.axis_devices(axis)
 
     def step(blocks, nblocks, digests, present):
-        roots, masks = [], []
-        for blk, nb, dig, pres in zip(
-            _shards(blocks, devs, 0), _shards(nblocks, devs, 0),
-            _shards(digests, devs, 1), _shards(present, devs, 1, torch.bool),
-        ):
-            roots.append(_local_root(hash_blocks(blk, nb)))
-            masks.append(divergence_masks(dig, pres))
-        counts = _psum([m.sum(dim=1, dtype=torch.int32) for m in masks], devs[0], mesh)
-        return _top_root(roots, devs[0], mesh), _gather(masks, devs[0], dim=1), counts
+        with device_span("ae.cycle", devs[0]):
+            roots, masks, counts = [], [], []
+            for dev, blk, nb, dig, pres in zip(
+                devs, _shards(blocks, devs, 0), _shards(nblocks, devs, 0),
+                _shards(digests, devs, 1), _shards(present, devs, 1, torch.bool),
+            ):
+                with device_span("ae.leaf", dev):
+                    leaves = hash_blocks(blk, nb)
+                with device_span("ae.levels", dev):
+                    roots.append(_local_root(leaves))
+                del leaves  # freed before the shard's diff allocates its masks
+                with device_span("ae.diff", dev):
+                    masks.append(divergence_masks(dig, pres))
+                    counts.append(masks[-1].sum(dim=1, dtype=torch.int32))
+            with device_span("ae.combine", devs[0]):
+                total = _psum(counts, devs[0], mesh)
+                root = _top_root(roots, devs[0], mesh)
+                return root, _gather(masks, devs[0], dim=1), total
 
     return step
 

@@ -509,3 +509,40 @@ def test_device_profile_traces_the_kernels(dev, tmp_path):
     for kernel in ("leaf_kernel", "node_level_kernel", "path_rehash_kernel",
                    "promotion_chain_kernel"):
         assert any(kernel in n for n in names), (kernel, sorted(set(names))[:20])
+
+
+def test_device_spans_time_the_cycle_on_the_card(dev, tmp_path):
+    """Under ``device_profile`` on the calling thread, each cycle's
+    ``ae.*`` spans get device times from their CUDA events (the phases
+    inside the cycle's), the second cycle the gap after the first, and
+    the trace holds them as ``gpu_user_annotation`` ranges."""
+    from merklekv_tpu_torch.utils import tracing
+
+    n, r = 4099, 3
+    blocks = _words(21, (n, 3, 16), dev)
+    nblocks = torch.full((n,), 3, dtype=torch.int32, device=dev)
+    digests = _words(22, (1, n, 8), dev).repeat(r, 1, 1)
+    digests[1, 7, 0] ^= 1
+    present = torch.ones((r, n), dtype=torch.bool, device=dev)
+    want = te.anti_entropy_forward(blocks, nblocks, digests, present, device=dev)
+    tracing.clear_device_spans()
+    try:
+        with device_profile(str(tmp_path)):
+            for _ in range(2):
+                got = te.anti_entropy_forward(blocks, nblocks, digests, present, device=dev)
+                got[0].cpu()
+        torch.cuda.synchronize()
+        recs = tracing.device_spans()
+    finally:
+        tracing.clear_device_spans()
+    for a, b in zip(want, got):
+        assert torch.equal(a, b)
+    assert [s["name"] for s in recs] == ["ae.cycle", "ae.leaf", "ae.levels", "ae.diff"] * 2
+    for cyc in (recs[:4], recs[4:]):
+        assert all(s["device"] == 0 and s["device_ms"] > 0 for s in cyc)
+        assert sum(s["device_ms"] for s in cyc[1:]) <= cyc[0]["device_ms"] * 1.001
+    assert recs[0]["between_ms"] is None and recs[4]["between_ms"] >= 0
+    (trace,) = tmp_path.glob("*.pt.trace.json")
+    names = {ev.get("name") for ev in json.loads(trace.read_text())["traceEvents"]
+             if ev.get("cat") == "gpu_user_annotation"}
+    assert {"ae.leaf", "ae.levels", "ae.diff"} <= names, sorted(names)

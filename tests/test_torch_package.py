@@ -153,7 +153,9 @@ DIVERGES = {
                                            "default (--engine tpu)",
     "merklekv_tpu_torch.testing.device_faults": "the default corruption flips a bit of a list "
                                                 "of level tensors",
-    "merklekv_tpu_torch.utils.tracing": "device_profile over torch.profiler, not jax.profiler",
+    "merklekv_tpu_torch.utils.tracing": "device_profile over torch.profiler, not jax.profiler; "
+                                        "device_span and its ring for the data plane; span() "
+                                        "builds its log line only when INFO is on",
 }
 # The native runtime: every C++ file of the port is a copy of the JAX one.
 NATIVE_COPIES = sorted(p.name for p in (PKG / "native").iterdir())
