@@ -581,7 +581,7 @@ def phase_kernels(dev, rng: np.random.Generator, sizes=(1, 2, 3, 4097, 1 << 20))
         node_pairs_cuda,
     )
 
-    errs = {"leaf": 0, "node_level": 0, "node_pairs": 0}
+    errs = {"leaf": 0, "node_level": 0, "node_pairs": 0, "diff": 0}
     checks = 0
 
     def hold(name, got, want, what):
@@ -620,6 +620,17 @@ def phase_kernels(dev, rng: np.random.Generator, sizes=(1, 2, 3, 4097, 1 << 20))
         if plain.digests_to_bytes(got[rows].cpu().numpy().view(np.uint32)) != [
                 hashlib.sha256(m.astype(">u4").tobytes()).digest() for m in msgs]:
             raise AssertionError(f"node_pairs kernel differs from hashlib at P={p}")
+    # The diff kernel: masks and counts as one int32 row each, on whole
+    # stacks and on a key slice (replica stride other than N).
+    from merklekv_tpu_torch.ops.diff_cuda import divergence_cuda, divergence_plain
+
+    for r, n, lo in ((1, 1, 0), (3, 4097, 0), (8, 1 << 20, 0), (8, (1 << 20) - 3, 3)):
+        digests, present, _ = replica_stacks(dev, int(rng.integers(1 << 30)), lo + n, r)
+        digests, present = digests[:, lo:], present[:, lo:]
+        got, want = divergence_cuda(digests, present), divergence_plain(digests, present)
+        hold("diff", torch.cat([got[0].to(torch.int32).flatten(), got[1]]),
+             torch.cat([want[0].to(torch.int32).flatten(), want[1]]), f"R={r} N={n} from {lo}")
+        del digests, present, got, want
 
     # hashlib: random-byte leaves of 0..200 bytes (1-4 blocks), and nodes.
     keys = [rng.bytes(int(rng.integers(0, 40))) for _ in range(300)]
@@ -780,7 +791,7 @@ def phase_rebuild(dev, seed: int, n_keys: int = REBUILD_KEYS, n_rep: int = REPLI
     root, masks, counts = anti_entropy_forward(blocks, nblocks, digests, present, device=dev)
     sync()
     launches = dict(LAUNCHES)
-    if launches["leaf"] < 1 or launches["node_level"] < 1:
+    if launches["leaf"] < 1 or launches["node_level"] < 1 or launches["diff"] != 1:
         raise AssertionError(f"rebuild did not run through the kernels: {launches}")
 
     plain_leaves = plain.sha256_blocks(blocks, nblocks)
@@ -2497,7 +2508,7 @@ class _PartCluster:
         self.path_ks[proc.pid] = collections.Counter(
             {int(k): n for k, n in got.get("path_ks", {}).items()})
         return {k: int(got.get(k, 0)) for k in ("leaf", "node_level", "node_pairs",
-                                                 "path_rehash", "promotion_chain")}
+                                                 "path_rehash", "promotion_chain", "diff")}
 
     def kill9(self, name: str) -> None:
         """SIGKILL ``name`` after reading its launch counts."""
@@ -3165,6 +3176,7 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
     from merklekv_tpu_torch.merkle.incremental import _reduce_levels
     from merklekv_tpu_torch.ops import merkle_paths as mp
     from merklekv_tpu_torch.ops import sha256 as plain
+    from merklekv_tpu_torch.ops.diff_cuda import divergence_cuda, divergence_plain
     from merklekv_tpu_torch.ops.sha256_cuda import (
         leaf_digests_cuda,
         node_level_cuda,
@@ -3172,6 +3184,7 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
     )
 
     n, nblk = blocks.shape[0], blocks.shape[1]
+    digests, present, _ = replica_stacks(dev, int(rng.integers(1 << 30)), n, REPLICAS)
     leaves = leaf_digests_cuda(blocks, nblocks)
     pairs_l, pairs_r = rand_words(rng, (BATCH, 8), dev), rand_words(rng, (BATCH, 8), dev)
     n_blocks_hashed = int(nblocks.clamp(0, nblk).sum().item())
@@ -3223,6 +3236,11 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
          (1 + even) * 32 + nlev * 32, even * LOGIC_NODE, even * ADDS_NODE,
          (even, 0),
          f"n={TREE_KEYS} on 2^{depth}, {even} node hashes", 200),
+        ("diff", "diff_kernels.cu", "merklekv_tpu/merkle/diff.py:98 (XLA's fusion)",
+         "diff_kernel",
+         lambda: divergence_cuda(digests, present), lambda: divergence_plain(digests, present),
+         REPLICAS * n * (32 + 1 + 1) + 4 * REPLICAS, 0, 0, None,
+         f"[{REPLICAS}, {n}, 8]", 10),
     ]
     # Device times first, each in its own profiler session; then the serial
     # floors: the root's path is a leaf of the batch's one block and `depth`

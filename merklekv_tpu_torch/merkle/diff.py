@@ -8,11 +8,15 @@ The whole comparison is one elementwise pass over stacked replica tensors:
     reference replica simultaneously — [R, N] in one pass;
   - winners for reconciliation come back as index lists, not values.
 
-These are plain torch elementwise ops, as the JAX package left them to XLA
-outside any Pallas kernel. ``divergence_masks_np`` is a copy of the JAX
-package's host twin. ``divergence_masks_engine`` is the engine boundary the
-anti-entropy manager calls: past ``SHARDED_DIFF_MIN_KEYS`` on a host with
-two or more devices it shards the comparison over them
+The JAX package left the predicate to XLA outside any Pallas kernel; here
+``divergence_masks`` goes through ``ops.dispatch.divergence``: on a CUDA
+tensor one hand-written kernel (``csrc/diff_kernels.cu``) that reads every
+digest once and writes the masks and the per-replica counts in the same
+pass, on a CPU tensor :func:`divergence_vs_ref`, the one predicate both
+share. ``divergence_masks_np`` is a copy of the JAX package's host twin.
+``divergence_masks_engine`` is the engine boundary the anti-entropy
+manager calls: past ``SHARDED_DIFF_MIN_KEYS`` on a host with two or more
+devices it shards the comparison over them
 (``parallel/sharded_merkle.py::sharded_divergence``), else it is
 ``divergence_masks`` on the given device. The masks are bit-identical
 either way.
@@ -25,6 +29,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from merklekv_tpu_torch.ops.dispatch import divergence
 from merklekv_tpu_torch.utils.torchenv import as_tensor, resolve_device
 
 __all__ = [
@@ -98,10 +103,13 @@ def divergence_vs_ref(digests, present, ref_d, ref_p):
 
 
 def divergence_masks(digests: torch.Tensor, present: torch.Tensor) -> torch.Tensor:
-    """[R, N] bool: key i diverges between replica r and replica 0.
+    """[R, N] bool: key i diverges between replica r and replica 0, from
+    [R, N, 8] int32 digests and [R, N] bool presence (the masks of
+    ``ops.dispatch.divergence``; callers that need the per-replica counts
+    take both from it).
 
     Row 0 is all-False by construction."""
-    return divergence_vs_ref(digests, present, digests[0:1], present[0:1])
+    return divergence(digests, present)[0]
 
 
 def divergence_masks_np(digests: np.ndarray, present: np.ndarray) -> np.ndarray:

@@ -22,9 +22,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from merklekv_tpu_torch.merkle.diff import divergence_masks
 from merklekv_tpu_torch.merkle.packing import pack_leaves
-from merklekv_tpu_torch.ops.dispatch import build_levels, hash_blocks, hash_node_level
+from merklekv_tpu_torch.ops.dispatch import build_levels, divergence, hash_blocks, hash_node_level
 from merklekv_tpu_torch.ops.sha256 import digest_to_bytes, digests_to_bytes
 from merklekv_tpu_torch.utils.torchenv import as_tensor, resolve_device, words_np
 from merklekv_tpu_torch.utils.tracing import device_span
@@ -50,9 +49,10 @@ def anti_entropy_forward(blocks, nblocks, digests, present, device=None):
 
     While a profiler session records on the calling thread, the step is the
     device span ``ae.cycle`` with the phases ``ae.leaf`` (hash every leaf),
-    ``ae.levels`` (the tree) and ``ae.diff`` (the masks and the counts) in
-    it (``utils.tracing.device_span``); the copy of a host array to the
-    device falls in the phase that reads it.
+    ``ae.levels`` (the tree) and ``ae.diff`` (the masks and the counts, one
+    ``ops.dispatch.divergence`` call) in it (``utils.tracing.device_span``);
+    the copy of a host array to the device falls in the phase that reads
+    it.
     """
     dev = resolve_device(device)
     with device_span("ae.cycle", dev):
@@ -61,8 +61,7 @@ def anti_entropy_forward(blocks, nblocks, digests, present, device=None):
         with device_span("ae.levels", dev):
             root = build_levels(leaves)[-1][0]
         with device_span("ae.diff", dev):
-            masks = divergence_masks(as_tensor(digests, dev), as_tensor(present, dev, torch.bool))
-            counts = masks.sum(dim=1, dtype=torch.int32)
+            masks, counts = divergence(as_tensor(digests, dev), as_tensor(present, dev, torch.bool))
     return root, masks, counts
 
 

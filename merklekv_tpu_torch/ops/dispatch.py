@@ -4,7 +4,8 @@ PyTorch versions for CPU tensors.
 Counterpart of ``merklekv_tpu/ops/dispatch.py``. Every hashing site of the
 torch package (leaf digests, the static tree build, the serving tree's
 path rehash, promotion chain and restructure) routes through these
-functions.
+functions, and so does the N-replica diff (``divergence``), which the JAX
+package left to XLA's fusion.
 
 Policy: the tensor's device decides, and nothing else. A CUDA tensor goes to
 the kernel (or the wrapper raises); a CPU tensor goes to the plain version.
@@ -18,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from merklekv_tpu_torch.ops.diff_cuda import divergence_cuda
 from merklekv_tpu_torch.ops.merkle_paths import (
     path_rehash_cuda,
     path_scratch,
@@ -38,6 +40,7 @@ __all__ = [
     "rehash_paths",
     "path_scratch",
     "promotion_chain",
+    "divergence",
 ]
 
 
@@ -74,3 +77,9 @@ def promotion_chain(levels: list[torch.Tensor], n: int) -> torch.Tensor:
     """[L, 8]: the odd-promotion reference tree's last node per level over
     the first n leaves of the padded ``levels``; the last row is the root."""
     return promotion_chain_cuda(levels, n)
+
+
+def divergence(digests: torch.Tensor, present: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """[R, N, 8] int32 digests + [R, N] bool presence -> ([R, N] bool masks
+    of the keys that diverge from replica 0, [R] int32 counts of each row)."""
+    return divergence_cuda(digests, present)

@@ -5,8 +5,9 @@ Counterpart of ``merklekv_tpu/ops/sha256_pallas.py``. The kernels live in
 ``sha256_core.cuh``); the note at the top of that file says which Pallas
 kernel each one replaces, what bounds it on an H100 and what its design
 does about that. The serving tree's path-rehash and promotion-chain
-kernels (``csrc/merkle_paths.cu``) are built into the same library; their
-binding and wrappers are in ``ops/merkle_paths.py``.
+kernels (``csrc/merkle_paths.cu``) and the N-replica diff kernel
+(``csrc/diff_kernels.cu``) are built into the same library; their bindings
+and wrappers are in ``ops/merkle_paths.py`` and ``ops/diff_cuda.py``.
 
 Build: at first use, one ``nvcc`` per source, all started together, compiles
 it for ``sm_90a``; one more links the objects into a shared library with a
@@ -62,8 +63,8 @@ __all__ = [
 ]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("sha256_kernels.cu", "merkle_paths.cu")
-_HEADERS = ("sha256_core.cuh", "merkle_paths.cuh", "node_pairs.cuh")
+_SOURCES = ("sha256_kernels.cu", "merkle_paths.cu", "diff_kernels.cu")
+_HEADERS = ("sha256_core.cuh", "merkle_paths.cuh", "node_pairs.cuh", "diff_kernels.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -73,7 +74,7 @@ _NVCC_FLAGS = (
 
 # Launch counts per kernel: plain integers, bumped where a kernel launches.
 LAUNCHES = {"leaf": 0, "node_level": 0, "node_pairs": 0,
-            "path_rehash": 0, "promotion_chain": 0}
+            "path_rehash": 0, "promotion_chain": 0, "diff": 0}
 
 
 def reset_launch_counts() -> None:

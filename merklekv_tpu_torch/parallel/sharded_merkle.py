@@ -10,8 +10,11 @@ tree over D nodes is reduced there. The result is bit-identical to the
 single-device tree of N leaves, because D and L are powers of two.
 
 Divergence is parallel over keys: each device compares its [R, L] digest
-block and the per-replica counts are summed on the first device (the JAX
-``psum``).
+block (``ops.dispatch.divergence``: masks and counts in one kernel launch
+on a card, reading a key slice of a larger tensor where it lies) and the
+per-replica counts are summed on the first device (the JAX ``psum``). The
+2-D diff (:func:`sharded_divergence_2d`), whose reference rows come from
+another device, keeps the eager predicate.
 
 What differs from the JAX module: there is no ``shard_map`` and no program
 cache. Each function loops over the mesh axis, runs the shard's kernels on
@@ -54,10 +57,11 @@ import numpy as np
 import torch
 
 from merklekv_tpu_torch.merkle.cpu import ref_level_sizes
-from merklekv_tpu_torch.merkle.diff import divergence_masks, divergence_vs_ref
+from merklekv_tpu_torch.merkle.diff import divergence_vs_ref
 from merklekv_tpu_torch.merkle.incremental import _reduce_levels
 from merklekv_tpu_torch.ops.dispatch import (
     build_levels,
+    divergence,
     hash_blocks,
     path_scratch,
     promotion_chain,
@@ -228,12 +232,11 @@ def sharded_divergence(
     d = len(devs)
     if _rows(digests, 1, d) % d:
         raise ValueError("key axis not divisible by mesh")
-    masks = [
-        divergence_masks(dig, pres)
+    masks, counts = zip(*(
+        divergence(dig, pres)
         for dig, pres in zip(_shards(digests, devs, 1), _shards(present, devs, 1, torch.bool))
-    ]
-    counts = _psum([m.sum(dim=1, dtype=torch.int32) for m in masks], devs[0], mesh)
-    return _gather(masks, devs[0], dim=1), counts
+    ))
+    return _gather(masks, devs[0], dim=1), _psum(counts, devs[0], mesh)
 
 
 def _grid(mesh: Mesh, replica_axis: str, key_axis: str) -> np.ndarray:
@@ -407,8 +410,9 @@ def make_anti_entropy_step(mesh: Mesh, axis: str = "key"):
                     roots.append(_local_root(leaves))
                 del leaves  # freed before the shard's diff allocates its masks
                 with device_span("ae.diff", dev):
-                    masks.append(divergence_masks(dig, pres))
-                    counts.append(masks[-1].sum(dim=1, dtype=torch.int32))
+                    m, c = divergence(dig, pres)
+                    masks.append(m)
+                    counts.append(c)
             with device_span("ae.combine", devs[0]):
                 total = _psum(counts, devs[0], mesh)
                 root = _top_root(roots, devs[0], mesh)

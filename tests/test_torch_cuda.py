@@ -17,9 +17,11 @@ import pytest
 import torch
 
 from merklekv_tpu_torch.device.guard import DispatchGuard
+from merklekv_tpu_torch.merkle import diff as tdiff
 from merklekv_tpu_torch.merkle import torch_engine as te
 from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
 from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState, _reduce_levels
+from merklekv_tpu_torch.ops import diff_cuda as dc
 from merklekv_tpu_torch.ops import merkle_paths as mp
 from merklekv_tpu_torch.ops import sha256 as plain
 from merklekv_tpu_torch.ops import sha256_cuda as sc
@@ -98,7 +100,7 @@ def test_launch_counts_and_empty_inputs(dev):
     sc.node_pairs_cuda(x, x)
     sc.leaf_digests_cuda(_words(2, (4, 1, 16), dev), torch.ones(4, dtype=torch.int32, device=dev))
     assert sc.LAUNCHES == {"leaf": 1, "node_level": 1, "node_pairs": 1,
-                           "path_rehash": 0, "promotion_chain": 0}
+                           "path_rehash": 0, "promotion_chain": 0, "diff": 0}
 
 
 def test_wrappers_reject_bad_tensors(dev):
@@ -175,7 +177,7 @@ def test_sharded_state_on_card_matches_single_device(dev, n):
         if round_ != 2 and card._capacity >= 8:
             owners = len(set(card._positions(keys) // (card._capacity // 4)))
             assert delta == {"leaf": 0, "node_level": 2, "node_pairs": 0,
-                             "path_rehash": owners, "promotion_chain": 0}
+                             "path_rehash": owners, "promotion_chain": 0, "diff": 0}
         one.apply(batch)
         assert card.root_hex() == one.root_hex()
         for level, m in enumerate(card.ref_level_sizes(card.leaf_count())):
@@ -311,7 +313,7 @@ def test_value_batch_is_one_fused_launch(dev):
     card.flush_pending()
     delta = {name: sc.LAUNCHES[name] - before[name] for name in before}
     assert delta == {"leaf": 0, "node_level": 0, "node_pairs": 0,
-                     "path_rehash": 1, "promotion_chain": 0}
+                     "path_rehash": 1, "promotion_chain": 0, "diff": 0}
     assert mp.PATH_KS - ks == {len(batch): 1}
     cpu.apply(batch)
     assert card.root_hex() == cpu.root_hex()
@@ -546,3 +548,140 @@ def test_device_spans_time_the_cycle_on_the_card(dev, tmp_path):
     names = {ev.get("name") for ev in json.loads(trace.read_text())["traceEvents"]
              if ev.get("cat") == "gpu_user_annotation"}
     assert {"ae.leaf", "ae.levels", "ae.diff"} <= names, sorted(names)
+
+
+# ------------------------------------------------------------ the N-replica diff
+
+def _replicas(seed, r, m):
+    """[r, m, 8] uint32 digests and [r, m] bool presence: replica 0's random
+    digests in every replica, then in each replica r >= 1 keys that differ
+    in one word (each of the 8; bit 31 in the odd words), keys absent from
+    it alone and from both it and replica 0; and keys absent from replica 0
+    alone."""
+    rng = np.random.default_rng(seed)
+    some = max(1, m // 40)
+    dig = np.repeat(rng.integers(0, 2**32, size=(1, m, 8), dtype=np.uint64).astype(np.uint32),
+                    r, axis=0)
+    pres = np.ones((r, m), bool)
+    for ri in range(1, r):
+        for w in range(8):
+            bit = 31 if w % 2 else int(rng.integers(0, 31))
+            dig[ri, rng.integers(0, m, size=some), w] ^= np.uint32(1 << bit)
+        pres[ri, rng.integers(0, m, size=some)] = False
+        both = rng.integers(0, m, size=some)
+        pres[ri, both] = False
+        pres[0, both] = False
+    pres[0, rng.integers(0, m, size=some)] = False
+    return dig, pres
+
+
+def _check_diff(dig_np, pres_np, masks, counts):
+    want = tdiff.divergence_masks_np(dig_np, pres_np)
+    np.testing.assert_array_equal(masks.cpu().numpy(), want)
+    np.testing.assert_array_equal(counts.cpu().numpy(), want.sum(axis=1, dtype=np.int32))
+    plain_m, plain_c = dc.divergence_plain(torch.from_numpy(dig_np.view(np.int32)),
+                                           torch.from_numpy(pres_np))
+    assert torch.equal(masks.cpu(), plain_m) and torch.equal(counts.cpu(), plain_c)
+
+
+# ("grid", o): 8192 keys an SM (2048 threads of 4 keys), more than one
+# launch's grid covers in one pass at any occupancy, plus o.
+DIFF_KEYS = [1, 31, 32, 33, 4096, 4097, ("grid", 12344), ("grid", 12345)]
+
+
+@pytest.mark.parametrize("r", [1, 2, 3, 8])
+@pytest.mark.parametrize("n", DIFF_KEYS, ids=str)
+def test_diff_kernel_matches_plain(dev, r, n):
+    if isinstance(n, tuple):
+        n = 8192 * torch.cuda.get_device_properties(dev).multi_processor_count + n[1]
+    dig, pres = _replicas(7 * r + n, r, n)
+    before = sc.LAUNCHES["diff"]
+    masks, counts = dc.divergence_cuda(torch.from_numpy(dig.view(np.int32)).to(dev),
+                                       torch.from_numpy(pres).to(dev))
+    assert sc.LAUNCHES["diff"] == before + 1
+    assert masks.device == dev and counts.dtype == torch.int32
+    _check_diff(dig, pres, masks, counts)
+
+
+# (first key, keys, keys after): presence rows misaligned for word loads
+# and ragged, aligned, and a long ragged slice.
+@pytest.mark.parametrize("start,n,after", [(1, 33, 2), (3, 4097, 0), (128, 4096, 0),
+                                           (5, 100_003, 11)])
+def test_diff_kernel_on_a_key_slice(dev, start, n, after):
+    dig, pres = _replicas(start + n, 8, start + n + after)
+    d = torch.from_numpy(dig.view(np.int32)).to(dev)[:, start:start + n]
+    p = torch.from_numpy(pres).to(dev)[:, start:start + n]
+    assert d.stride(0) != 8 * n and not d.is_contiguous()
+    masks, counts = dc.divergence_cuda(d, p)
+    _check_diff(dig[:, start:start + n].copy(), pres[:, start:start + n].copy(), masks, counts)
+
+
+def test_diff_kernel_copies_a_layout_it_cannot_read(dev):
+    dig, pres = _replicas(3, 3, 1000)
+    d = torch.from_numpy(dig.view(np.int32).transpose(0, 2, 1).copy()).to(dev).transpose(1, 2)
+    p = torch.from_numpy(pres.T.copy()).to(dev).T
+    masks, counts = dc.divergence_cuda(d, p)
+    _check_diff(dig, pres, masks, counts)
+
+
+def test_diff_kernel_finds_one_word_in_each_position(dev):
+    dig = np.zeros((2, 17, 8), np.uint32)
+    dig[:] = np.arange(17 * 8, dtype=np.uint32).reshape(17, 8) * np.uint32(0x9E3779B1)
+    for w in range(8):
+        dig[1, 2 * w, w] ^= np.uint32(1 << 31)
+        dig[1, 2 * w + 1, w] ^= np.uint32(1)
+    masks, counts = dc.divergence_cuda(torch.from_numpy(dig.view(np.int32)).to(dev),
+                                       torch.ones((2, 17), dtype=torch.bool, device=dev))
+    assert masks[1].tolist() == [True] * 16 + [False] and not masks[0].any()
+    assert counts.tolist() == [0, 16]
+
+
+def test_diff_empty_inputs_launch_nothing(dev):
+    before = sc.LAUNCHES["diff"]
+    for r, n in ((3, 0), (0, 5)):
+        masks, counts = dc.divergence_cuda(torch.zeros((r, n, 8), dtype=torch.int32, device=dev),
+                                           torch.zeros((r, n), dtype=torch.bool, device=dev))
+        assert masks.shape == (r, n) and counts.tolist() == [0] * r
+    assert sc.LAUNCHES["diff"] == before
+
+
+def test_diff_wrapper_rejects_bad_tensors(dev):
+    d = torch.zeros((2, 4, 8), dtype=torch.int32, device=dev)
+    p = torch.ones((2, 4), dtype=torch.bool, device=dev)
+    with pytest.raises(TypeError):
+        dc.divergence_cuda(d.to(torch.int64), p)
+    with pytest.raises(TypeError):
+        dc.divergence_cuda(d, p.to(torch.uint8))
+    with pytest.raises(ValueError):
+        dc.divergence_cuda(d[:, :, :4], p)
+    with pytest.raises(ValueError):
+        dc.divergence_cuda(d, p[:, :3])
+    with pytest.raises(ValueError):
+        dc.divergence_cuda(d, p.cpu())
+
+
+def test_anti_entropy_forward_launches_the_diff_once_a_cycle(dev):
+    n, r = 4099, 8
+    blocks = _words(31, (n, 2, 16), dev)
+    nblocks = torch.full((n,), 2, dtype=torch.int32, device=dev)
+    dig, pres = _replicas(32, r, n)
+    digests, present = torch.from_numpy(dig.view(np.int32)).to(dev), torch.from_numpy(pres).to(dev)
+    before = sc.LAUNCHES["diff"]
+    for cycle in range(3):
+        _root, masks, counts = te.anti_entropy_forward(blocks, nblocks, digests, present,
+                                                       device=dev)
+        assert sc.LAUNCHES["diff"] == before + cycle + 1
+    _check_diff(dig, pres, masks, counts)
+
+
+def test_sharded_diff_reads_each_shards_slice(dev):
+    from merklekv_tpu_torch.parallel import sharded_merkle
+    from merklekv_tpu_torch.parallel.mesh import make_mesh
+
+    dig, pres = _replicas(41, 3, 4 * 1027)
+    mesh = make_mesh({"key": 4}, devices=[dev] * 4)
+    before = sc.LAUNCHES["diff"]
+    masks, counts = sharded_merkle.sharded_divergence(
+        mesh, torch.from_numpy(dig.view(np.int32)).to(dev), torch.from_numpy(pres).to(dev))
+    assert sc.LAUNCHES["diff"] == before + 4
+    _check_diff(dig, pres, masks, counts)
