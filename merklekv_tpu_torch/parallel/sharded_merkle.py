@@ -1,13 +1,19 @@
 """Sharded Merkle build and diff over the devices of a mesh (counterpart of
 ``merklekv_tpu/parallel/sharded_merkle.py``).
 
-Decomposition, as in the JAX package: for N = D * L leaves with L a power
-of two, the bottom log2(L) tree levels never cross a shard boundary — every
-pair merge is inside one contiguous block of L sorted leaves. So each
-device reduces its own [L, 8] leaf block to one subtree root, the D subtree
-roots are copied to the first device (the JAX ``all_gather``), and the top
-tree over D nodes is reduced there. The result is bit-identical to the
-single-device tree of N leaves, because D and L are powers of two.
+Decomposition, for N = D * L leaves with L >= 1: let 2^v be the largest
+power of two that divides L. Below level v every level's shard segments
+(L / 2^j nodes, starting at s * L / 2^j) are even in length and offset, so
+every pair merge is inside one shard and no level promotes a node. So each
+device reduces its own [L, 8] leaf block for v levels to its [L / 2^v, 8]
+nodes of level v (the seam), the D seams are copied to the first device
+(the JAX ``all_gather``) and the rest of the tree, odd promotion intact,
+is built there over their D * L / 2^v nodes. The result is bit-identical
+to the single-device tree of N leaves for every D and L. When L is a power
+of two each seam is the shard's subtree root, as in the JAX package (which
+accepts only that case). When L is odd (v = 0) the whole leaf level is
+copied to the first device and its tree built there alone: exact, but the
+first device does all of the tree's work.
 
 Divergence is parallel over keys: each device compares its [R, L] digest
 block (``ops.dispatch.divergence``: masks and counts in one kernel launch
@@ -31,12 +37,13 @@ is, with no copy.
 
 Across processes (a mesh from ``multihost.global_key_mesh`` whose group has
 more than one rank), the inputs are this rank's rows and the local results
-are combined over the group: the D_global subtree roots by an ``all_reduce``
-sum of a zero-filled [D_global, 8] int32 buffer in which each rank has
-written only its own rows (each row has one nonzero contributor, so the sum
-is exactly the concatenation — gloo documents CUDA tensors only for
-``broadcast`` and ``all_reduce``, so there is no ``all_gather`` here), and
-the per-replica counts by an ``all_reduce`` sum. The root and the counts are
+are combined over the group: the seams (every rank holds as many shards
+of one L) by an ``all_reduce`` sum of a zero-filled [D_global * L / 2^v, 8]
+int32 buffer in which each rank has written only its own rows (each row
+has one nonzero contributor, so the sum is exactly the concatenation —
+gloo documents CUDA tensors only for ``broadcast`` and ``all_reduce``, so
+there is no ``all_gather`` here), and the per-replica counts by an
+``all_reduce`` sum. The root and the counts are
 then the same on every rank; the masks stay this rank's rows (the JAX
 docstring's "each process addressing only its own rows"). The 2-D diff
 across processes (:func:`sharded_divergence_2d`) moves replica 0's rows to
@@ -63,13 +70,14 @@ from merklekv_tpu_torch.ops.dispatch import (
     build_levels,
     divergence,
     hash_blocks,
+    hash_node_level,
     path_scratch,
     promotion_chain,
     rehash_paths,
 )
 from merklekv_tpu_torch.parallel.mesh import Mesh
 from merklekv_tpu_torch.utils.torchenv import as_tensor
-from merklekv_tpu_torch.utils.tracing import device_span
+from merklekv_tpu_torch.utils.tracing import device_span, get_metrics
 
 __all__ = [
     "sharded_tree_root",
@@ -84,28 +92,30 @@ __all__ = [
 ]
 
 
-def _local_root(block: torch.Tensor) -> torch.Tensor:
-    """[L, 8] -> [1, 8] subtree root (L is a power of two)."""
-    _check_local_block(block.shape[0])
-    return build_levels(block)[-1]
+def _seam(block: torch.Tensor) -> torch.Tensor:
+    """[L, 8] shard leaves -> [L / 2^v, 8], the shard's nodes at level v
+    (2^v the largest power of two dividing L): pairs of adjacent nodes,
+    while the level is even, so nothing crosses a shard or is promoted."""
+    cur = block
+    while cur.shape[0] % 2 == 0:
+        cur = hash_node_level(cur)
+    return cur
 
 
-def _check_local_block(l: int) -> None:
-    """Per-shard leaf count must be a positive power of two, or the local
-    subtree reduction would apply odd-promotion at a shard boundary and
-    silently diverge from the global tree."""
-    if l == 0 or (l & (l - 1)):
-        raise ValueError(
-            f"per-shard leaf count {l} must be a positive power of two"
-        )
+def _shard_len(n: int, d: int, what: str = "leaf count") -> int:
+    """Validate n = d * L with L >= 1; return L."""
+    if n % d:
+        raise ValueError(f"{what} {n} not divisible by mesh axis {d}")
+    if n == 0:
+        raise ValueError(f"per-shard {what} 0 must be at least 1")
+    return n // d
 
 
 def _check_shardable(n: int, d: int, what: str = "leaf count") -> int:
-    """Validate n = d * L with L a positive power of two; return L."""
-    if n % d:
-        raise ValueError(f"{what} {n} not divisible by mesh axis {d}")
-    l = n // d
-    if l == 0 or (l & (l - 1)):
+    """Validate n = d * L with L a positive power of two (the serving
+    tree's padded capacity); return L."""
+    l = _shard_len(n, d, what)
+    if l & (l - 1):
         raise ValueError(f"per-shard {what} {l} must be a positive power of two")
     return l
 
@@ -194,11 +204,11 @@ def _psum(parts: Sequence[torch.Tensor], dev: torch.device,
     return total
 
 
-def _top_root(roots: Sequence[torch.Tensor], dev: torch.device,
-              mesh: Mesh | None = None) -> torch.Tensor:
-    """[8] root of the tree over the shard roots (every rank's, when
-    ``mesh`` spans processes), reduced on ``dev``."""
-    return build_levels(_gather(roots, dev, mesh=mesh))[-1][0]
+def _finish_root(seams: Sequence[torch.Tensor], dev: torch.device,
+                 mesh: Mesh | None = None) -> torch.Tensor:
+    """[8] root of the tree whose level v is the shards' seams in key order
+    (every rank's, when ``mesh`` spans processes), built on ``dev``."""
+    return build_levels(_gather(seams, dev, mesh=mesh))[-1][0]
 
 
 def sharded_tree_root(mesh: Mesh, leaves, axis: str = "key") -> torch.Tensor:
@@ -206,15 +216,16 @@ def sharded_tree_root(mesh: Mesh, leaves, axis: str = "key") -> torch.Tensor:
     int32 tensor, or the per-device form: one [L, 8] tensor per device),
     keyspace-sharded over ``mesh``'s ``axis``.
 
-    N must equal mesh.shape[axis] * L with L a power of two (pad the
-    keyspace before calling). Returns [8] int32 on the axis's first device,
-    bit-identical to ``tree_root(leaves)``; across processes, the root of
-    every rank's rows, the same on each rank.
+    N must equal mesh.shape[axis] * L for some L >= 1. Each shard reduces
+    its leaves to its seam and the first device finishes the tree (see the
+    module's note; an odd L sends every leaf there). Returns [8] int32 on
+    the axis's first device, bit-identical to ``tree_root(leaves)``; across
+    processes, the root of every rank's rows, the same on each rank.
     """
     devs = mesh.axis_devices(axis)
-    _check_shardable(_rows(leaves, 0, len(devs)), len(devs))
-    roots = [_local_root(block) for block in _shards(leaves, devs, 0)]
-    return _top_root(roots, devs[0], mesh)
+    _shard_len(_rows(leaves, 0, len(devs)), len(devs))
+    seams = [_seam(block) for block in _shards(leaves, devs, 0)]
+    return _finish_root(seams, devs[0], mesh)
 
 
 def sharded_divergence(
@@ -372,13 +383,14 @@ def make_anti_entropy_step(mesh: Mesh, axis: str = "key"):
     returns a compiled program):
 
       1. hash every local (key, value) leaf on its shard's device;
-      2. reduce the local leaves to one subtree root, copy the D subtree
-         roots to the first device and finish the top tree there (the
-         per-shard leaf count must be a positive power of two);
+      2. reduce the local leaves to the shard's seam, copy the D seams to
+         the first device and finish the tree there (see the module's
+         note: any L >= 1 leaves a shard; an odd L sends every leaf there);
       3. compare R replicas' digest blocks elementwise and sum the
          per-replica divergence counts.
 
-    Inputs (global shapes, numpy arrays or tensors):
+    Inputs (global shapes, numpy arrays or tensors; N divisible by the
+    mesh axis):
       blocks  [N, B, 16] uint32 — padded SHA-256 blocks
       nblocks [N] int32         — valid block count per leaf
       digests [R, N, 8] uint32  — R replicas' leaf digests
@@ -391,15 +403,22 @@ def make_anti_entropy_step(mesh: Mesh, axis: str = "key"):
 
     While a profiler session records on the calling thread, a step is the
     device span ``ae.cycle`` on the first device; in it each shard's
-    ``ae.leaf``, ``ae.levels`` (its subtree root) and ``ae.diff`` (its masks
-    and counts) on the shard's device, then ``ae.combine`` on the first
-    device (the counts' sum, the top tree, the masks' gather).
+    ``ae.leaf``, ``ae.levels`` (its seam) and ``ae.diff`` (its masks and
+    counts) on the shard's device, then ``ae.combine`` on the first device
+    (the counts' sum, the tree's finish, the masks' gather), and inside it
+    ``ae.seam`` (the seams' gather and the tree's finish). Each step adds 1
+    to the counter ``device.ae_mesh_steps`` and to
+    ``device.ae_combine_bytes`` the bytes of the seams, masks and counts of
+    every shard after the first: what crosses to the first device when the
+    shards are on distinct cards (across processes, this rank's).
     """
     devs = mesh.axis_devices(axis)
+    d = len(devs)
 
     def step(blocks, nblocks, digests, present):
+        _shard_len(_rows(blocks, 0, d), d)
         with device_span("ae.cycle", devs[0]):
-            roots, masks, counts = [], [], []
+            seams, masks, counts = [], [], []
             for dev, blk, nb, dig, pres in zip(
                 devs, _shards(blocks, devs, 0), _shards(nblocks, devs, 0),
                 _shards(digests, devs, 1), _shards(present, devs, 1, torch.bool),
@@ -407,7 +426,7 @@ def make_anti_entropy_step(mesh: Mesh, axis: str = "key"):
                 with device_span("ae.leaf", dev):
                     leaves = hash_blocks(blk, nb)
                 with device_span("ae.levels", dev):
-                    roots.append(_local_root(leaves))
+                    seams.append(_seam(leaves))
                 del leaves  # freed before the shard's diff allocates its masks
                 with device_span("ae.diff", dev):
                     m, c = divergence(dig, pres)
@@ -415,8 +434,14 @@ def make_anti_entropy_step(mesh: Mesh, axis: str = "key"):
                     counts.append(c)
             with device_span("ae.combine", devs[0]):
                 total = _psum(counts, devs[0], mesh)
-                root = _top_root(roots, devs[0], mesh)
-                return root, _gather(masks, devs[0], dim=1), total
+                with device_span("ae.seam", devs[0]):
+                    root = _finish_root(seams, devs[0], mesh)
+                gathered = _gather(masks, devs[0], dim=1)
+        metrics = get_metrics()
+        metrics.inc("device.ae_mesh_steps")
+        metrics.inc("device.ae_combine_bytes",
+                    sum(t.nbytes for part in (seams, masks, counts) for t in part[1:]))
+        return root, gathered, total
 
     return step
 
@@ -427,7 +452,7 @@ def sharded_anti_entropy_step(
     """Run the fused hash+build+diff step (see :func:`make_anti_entropy_step`)."""
     d = mesh.shape[axis]
     n = _rows(blocks, 0, d)
-    _check_shardable(n, d)
+    _shard_len(n, d)
     if _rows(digests, 1, d) != n:
         raise ValueError(
             f"digest key axis {_rows(digests, 1, d)} != leaf count {n}"
@@ -438,7 +463,8 @@ def sharded_anti_entropy_step(
 # --------------------------------------------------------------------------
 # Serving-tree helpers (the ShardedDeviceMerkleState backend).
 #
-# The padded tree at capacity C = D * L decomposes like the root above:
+# The padded tree at capacity C = D * L (L a power of two) decomposes like
+# the root above, each shard's seam being its root:
 # shard s holds the levels of leaves [s*L, (s+1)*L) — sizes L .. 1, every
 # pair merge inside the shard — and concatenating the shards' level j gives
 # the global padded level j. Only the log2(D) top levels combine shards:

@@ -121,9 +121,42 @@ def test_sharded_step_records_each_shard_and_one_combine():
     for a, b in zip(on, te.anti_entropy_forward(*args, device=CPU)):
         assert torch.equal(a, b)
     recs = tracing.device_spans()
-    assert [s["name"] for s in recs] == ["ae.cycle", *PHASES * 4, "ae.combine"]
+    assert [s["name"] for s in recs] == ["ae.cycle", *PHASES * 4, "ae.combine", "ae.seam"]
     top = recs[0]
-    assert all(s["parent"] == top["id"] and s["root"] == top["id"] for s in recs[1:])
+    assert all(s["root"] == top["id"] for s in recs[1:])
+    assert all(s["parent"] == top["id"] for s in recs[1:-1])
+    assert recs[-1]["parent"] == recs[-2]["id"]
+
+
+def _counters():
+    c = tracing.get_metrics().snapshot()["counters"]
+    return c.get("device.ae_mesh_steps", 0), c.get("device.ae_combine_bytes", 0)
+
+
+def test_the_seam_span_and_the_combine_counters():
+    """24 keys over 4 shards (6 a shard): each shard's seam is its 3 nodes of
+    level 1. Under a session ``ae.seam`` lies inside ``ae.combine`` on the
+    first device; with none nothing is recorded. Either way a step counts
+    once, and the bytes of shards 1-3's seams, masks and counts."""
+    mesh = make_mesh({"key": 4}, devices=[CPU] * 4)
+    step = sharded_merkle.make_anti_entropy_step(mesh)
+    args = _inputs(n=24)
+    r = args[2].shape[0]
+    per_step = 3 * (3 * 8 * 4 + r * 6 + r * 4)
+    steps0, bytes0 = _counters()
+    off = step(*args)
+    assert tracing.device_spans() == []
+    assert _counters() == (steps0 + 1, bytes0 + per_step)
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = step(*args)
+    assert _counters() == (steps0 + 2, bytes0 + 2 * per_step)
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+    recs = {s["name"]: s for s in tracing.device_spans()}
+    seam, combine, cycle = recs["ae.seam"], recs["ae.combine"], recs["ae.cycle"]
+    assert seam["parent"] == combine["id"] and combine["parent"] == cycle["id"]
+    assert seam["device"] == combine["device"] == cycle["device"]
+    assert combine["host_ns"][0] <= seam["host_ns"][0] <= seam["host_ns"][1] <= combine["host_ns"][1]
 
 
 def test_no_span_outside_the_cycle():

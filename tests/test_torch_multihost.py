@@ -9,9 +9,12 @@
   equals the JAX single-process ``sharded_anti_entropy_step`` on the CPU.
 - ``initialize`` raises the JAX function's ``ValueError`` texts for the same
   arguments, and is a no-op without a coordinator.
+- The same two ranks with two devices each over 24 keys (6 a shard, no
+  power of two) agree with the single-process step and the golden root.
 - One process: ``lift_local_shards`` + the step in the per-device form over
   ``["cpu"] * 4`` equals the single-tensor form and the JAX step bit for
-  bit; shards on the wrong device are refused.
+  bit; shards on the wrong device are refused; 12 keys a shard give the
+  golden root.
 - The 2-D ``(replica, key)`` diff across processes: 2 ranks (3 for R = 3,
   where each replica shard is one replica and the first holds the reference
   alone) with 1 and 2 ``"cpu"`` devices each, meshes where the replica axis
@@ -90,8 +93,8 @@ def _inputs(n=N_GLOBAL):
     return packed, digests, np.ones((R, n), bool)
 
 
-def _golden_hex() -> str:
-    keys, values = _kv()
+def _golden_hex(n=N_GLOBAL) -> str:
+    keys, values = _kv(n)
     return jax_golden_levels([jax_leaf_hash(k, v) for k, v in zip(keys, values)])[-1][0].hex()
 
 
@@ -108,9 +111,10 @@ def _jax_step_root_hex() -> tuple[str, str]:
             ",".join(str(int(c)) for c in np.asarray(counts)))
 
 
-def _run_ranks(world: int, local: int, env_extra: dict, backend=None) -> list[dict]:
+def _run_ranks(world: int, local: int, env_extra: dict, backend=None,
+               n: int = N_GLOBAL) -> list[dict]:
     port = _free_port()
-    args = [str(N_GLOBAL), str(R), str(DIVERGED), str(local)] + ([backend] if backend else [])
+    args = [str(n), str(R), str(DIVERGED), str(local)] + ([backend] if backend else [])
     procs = []
     try:
         for rank in range(world):
@@ -145,6 +149,22 @@ def test_two_ranks_agree_with_golden_and_the_jax_step(local):
     for out in outs:
         assert out["ROOT"] == golden
         assert out["COUNTS"] == f"0,{DIVERGED},0"
+        assert out["MASKS"] == "ok"
+
+
+@pytest.mark.integration
+def test_two_ranks_agree_over_shards_that_are_no_power_of_two():
+    """24 keys over 2 ranks of 2 devices: 6 a shard, so each shard's seam is
+    3 nodes and the tree the ranks finish over the 12 crosses every seam."""
+    outs = _run_ranks(2, 2, {"MERKLEKV_TORCH_DEVICE": "cpu"}, n=24)
+    packed, digests, present = _inputs(24)
+    root, _, counts = sharded_anti_entropy_step(
+        make_mesh({"key": 4}, devices=["cpu"] * 4), packed.blocks, packed.nblocks, digests, present)
+    single = digest_to_bytes(words_np(root)).hex()
+    assert single == _golden_hex(24)
+    for out in outs:
+        assert out["ROOT"] == single
+        assert out["COUNTS"] == ",".join(str(int(c)) for c in counts) == f"0,{DIVERGED},0"
         assert out["MASKS"] == "ok"
 
 
@@ -235,9 +255,10 @@ def test_per_device_form_is_checked():
     with pytest.raises(ValueError, match="not divisible by mesh axis 4"):
         multihost.lift_local_shards(mesh, packed.blocks[:62], packed.nblocks[:62],
                                     digests[:, :62], present[:, :62])
-    with pytest.raises(ValueError, match="must be a positive power of two"):
-        sharded_anti_entropy_step(mesh, *multihost.lift_local_shards(
-            mesh, packed.blocks[:48], packed.nblocks[:48], digests[:, :48], present[:, :48]))
+    # 12 keys a shard, no power of two: the exact tree over the 48 keys.
+    root48, _, _ = sharded_anti_entropy_step(mesh, *multihost.lift_local_shards(
+        mesh, packed.blocks[:48], packed.nblocks[:48], digests[:, :48], present[:, :48]))
+    assert digest_to_bytes(words_np(root48)).hex() == _golden_hex(48)
 
 
 def _run_2d(world, local, replicas, r, n, seed) -> list[dict]:

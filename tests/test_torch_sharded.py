@@ -8,8 +8,13 @@ The same inputs, made from a numpy seed, go through both. Tolerance
 everywhere: bit-identical (exact equality of words, digests and masks).
 
 Covered: ``make_mesh``; ``sharded_tree_root`` for D in {1, 2, 4, 8} and
-per-shard sizes {1, 2, 16}, bad shapes raising; ``sharded_divergence``,
-``sharded_divergence_2d`` and ``sharded_anti_entropy_step``; the sharded
+per-shard sizes {1, 2, 16}, a keyspace that does not split raising;
+``sharded_divergence``, ``sharded_divergence_2d`` and
+``sharded_anti_entropy_step``; the root and the step over shards of any
+length (D in {2, 3, 4, 8}, L in {1, 3, 6, ..., 64}: levels that cross the
+seams between shards and promote odd nodes) against ``portbench``'s plain
+reference and the JAX package's unsharded ``tree_root``, where the JAX
+sharded functions refuse a per-shard size that is not a power of two; the sharded
 serving state for D in {1, 2, 8} (build, value batch across every shard
 boundary, restructure with capacity growth and shrink, drain to empty and
 refill, n < D) held to the JAX sharded state's padded levels and TREELEVEL
@@ -29,6 +34,7 @@ import torch
 
 from merklekv_tpu.merkle import diff as jdiff
 from merklekv_tpu.merkle.incremental import _ref_root_fn
+from merklekv_tpu.merkle.jax_engine import tree_root as jax_tree_root
 from merklekv_tpu.parallel import make_mesh as jax_make_mesh
 from merklekv_tpu.parallel import sharded_merkle as jsm
 from merklekv_tpu.parallel.sharded_state import ShardedDeviceMerkleState as JaxSharded
@@ -63,6 +69,8 @@ from merklekv_tpu_torch.parallel import sharded_merkle as tsm
 from merklekv_tpu_torch.parallel.sharded_merkle import sharded_promotion_chain
 from merklekv_tpu_torch.testing.device_faults import DeviceFaultInjector
 from merklekv_tpu_torch.utils.torchenv import words_np
+from portbench.reference import sha256 as ref_sha
+from portbench.reference import tree as ref_tree
 
 CPU8 = ["cpu"] * 8
 FAST_HEAL = RetryPolicy(first_delay=0.05, max_delay=0.2, jitter=0.0)
@@ -137,12 +145,73 @@ def test_sharded_tree_root_matches_jax(d, per_shard):
 
 @pytest.mark.parametrize("n", [10, 12])
 def test_sharded_tree_root_rejects_bad_shapes(n):
-    leaves = np.zeros((n, 8), np.uint32)
-    with pytest.raises(ValueError) as port:
-        sharded_tree_root(make_mesh({"key": 4}, devices=CPU8), leaves)
+    """10 leaves do not split over 4 shards: both packages refuse alike. 12
+    (3 a shard) the JAX package refuses, not being a power of two a shard;
+    the port builds the exact tree."""
+    leaves = _words(n, (n, 8))
     with pytest.raises(ValueError) as ref:
         jsm.sharded_tree_root(_jmesh({"key": 4}), leaves)
-    assert str(port.value) == str(ref.value)
+    if n % 4:
+        with pytest.raises(ValueError) as port:
+            sharded_tree_root(make_mesh({"key": 4}, devices=CPU8), leaves)
+        assert str(port.value) == str(ref.value)
+    else:
+        got = sharded_tree_root(make_mesh({"key": 4}, devices=CPU8), leaves)
+        assert torch.equal(got, ref_tree.tree_root(torch.from_numpy(leaves.view(np.int32))))
+
+
+RAGGED_D = [2, 3, 4, 8]
+RAGGED_L = [1, 3, 6, 12, 20, 33, 48, 64]
+
+
+@pytest.mark.parametrize("d", RAGGED_D)
+@pytest.mark.parametrize("per_shard", RAGGED_L)
+def test_sharded_tree_root_over_shards_of_any_length(d, per_shard):
+    """N = D * L for any L: the root equals the plain reference's and the
+    JAX package's unsharded ``tree_root`` over the concatenated leaves."""
+    leaves = _words(d * 1000 + per_shard, (d * per_shard, 8))
+    got = sharded_tree_root(make_mesh({"key": d}, devices=CPU8), leaves)
+    assert torch.equal(got, ref_tree.tree_root(torch.from_numpy(leaves.view(np.int32))))
+    np.testing.assert_array_equal(words_np(got), np.asarray(jax_tree_root(leaves)))
+
+
+def _records(n):
+    keys = [b"ragged:%05d" % i for i in range(n)]
+    return keys, [b"value-%d" % (i * 7919 % 1000) for i in range(n)]
+
+
+# The root of ``_records(99)`` by hashlib alone (length-prefixed leaves,
+# sorted keys, SHA-256 of each pair, odd node promoted).
+RAGGED_GOLDEN_99 = "efbf7cdbaf3397cf85bc649824706278e324042a91827f9d0175e50f033c4173"
+
+
+@pytest.mark.parametrize("d", RAGGED_D)
+@pytest.mark.parametrize("per_shard", RAGGED_L)
+def test_sharded_anti_entropy_step_over_shards_of_any_length(d, per_shard):
+    """The fused step at N = D * L for any L: root, masks and counts equal
+    the plain reference's ``tree_root`` and ``diff_masks`` over the whole
+    keyspace, and the root the JAX package's unsharded ``tree_root``."""
+    n = d * per_shard
+    keys, vals = _records(n)
+    packed = pack_leaves(keys, vals)
+    rng = np.random.RandomState(n)
+    dig = np.repeat(_words(n + 7, (1, n, 8)), 3, axis=0)
+    pres = np.ones((3, n), bool)
+    dig[1, rng.choice(n, (n + 2) // 3, replace=False), 1] ^= 1
+    pres[2, rng.choice(n, (n + 3) // 4, replace=False)] = False
+    pres[0, n - 1] = False
+    root, masks, counts = sharded_anti_entropy_step(
+        make_mesh({"key": d}, devices=CPU8), packed.blocks, packed.nblocks, dig, pres)
+    leaves = ref_sha.hash_blocks(torch.from_numpy(packed.blocks.view(np.int32)),
+                                 torch.from_numpy(packed.nblocks.astype(np.int32)))
+    assert torch.equal(root, ref_tree.tree_root(leaves))
+    np.testing.assert_array_equal(words_np(root), np.asarray(jax_tree_root(words_np(leaves))))
+    want = ref_tree.diff_masks(torch.from_numpy(dig.view(np.int32)), torch.from_numpy(pres))
+    assert torch.equal(masks, want)
+    assert torch.equal(counts, want.sum(dim=1, dtype=torch.int32))
+    if n == 99:
+        assert words_np(root).astype(">u4").tobytes().hex() == RAGGED_GOLDEN_99
+        assert _golden_root(zip(keys, vals)) == RAGGED_GOLDEN_99
 
 
 def _replicas(seed, r, n):
