@@ -5,9 +5,11 @@ Counterpart of ``merklekv_tpu/ops/sha256_pallas.py``. The kernels live in
 ``sha256_core.cuh``); the note at the top of that file says which Pallas
 kernel each one replaces, what bounds it on an H100 and what its design
 does about that. The serving tree's path-rehash and promotion-chain
-kernels (``csrc/merkle_paths.cu``) and the N-replica diff kernel
-(``csrc/diff_kernels.cu``) are built into the same library; their bindings
-and wrappers are in ``ops/merkle_paths.py`` and ``ops/diff_cuda.py``.
+kernels (``csrc/merkle_paths.cu``), the N-replica diff kernel
+(``csrc/diff_kernels.cu``) and the key mesh's copy-engine copies
+(``csrc/mesh_copy.cu``) are built into the same library; their bindings
+and wrappers are in ``ops/merkle_paths.py``, ``ops/diff_cuda.py`` and
+``ops/mesh_copy.py``.
 
 Build: at first use, one ``nvcc`` per source, all started together, compiles
 it for ``sm_90a``; one more links the objects into a shared library with a
@@ -63,7 +65,7 @@ __all__ = [
 ]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("sha256_kernels.cu", "merkle_paths.cu", "diff_kernels.cu")
+_SOURCES = ("sha256_kernels.cu", "merkle_paths.cu", "diff_kernels.cu", "mesh_copy.cu")
 _HEADERS = ("sha256_core.cuh", "merkle_paths.cuh", "node_pairs.cuh", "diff_kernels.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _NVCC_FLAGS = (

@@ -27,7 +27,11 @@ cache. Each function loops over the mesh axis, runs the shard's kernels on
 the shard's device and moves tensors with ``.to(device)``, which orders the
 copy after the work already queued on both devices' current streams. The
 results the JAX programs return as global sharded arrays are returned as
-tensors on the first device of the axis.
+tensors on the first device of the axis. The masks are the exception
+(:class:`_ColumnGather`): each shard's [R, L] block is written straight
+into its column slice of one [R, N] result, on distinct cards by the copy
+engines on a side stream that waits only for the shard's diff, so that in
+the fused step the copies run while the cards hash their leaves.
 
 Two input forms. A global tensor (or numpy array) is split along its key
 dimension and each slice copied to its device. The per-device form — a list
@@ -58,6 +62,7 @@ them.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import numpy as np
@@ -75,6 +80,7 @@ from merklekv_tpu_torch.ops.dispatch import (
     promotion_chain,
     rehash_paths,
 )
+from merklekv_tpu_torch.ops.mesh_copy import copy_columns, enable_peer_access
 from merklekv_tpu_torch.parallel.mesh import Mesh
 from merklekv_tpu_torch.utils.torchenv import as_tensor
 from merklekv_tpu_torch.utils.tracing import device_span, get_metrics
@@ -190,6 +196,85 @@ def _gather(parts: Sequence[torch.Tensor], dev: torch.device, dim: int = 0,
     return buf
 
 
+def _copy_engines(devs: Sequence[torch.device]) -> bool:
+    """Whether a gather onto ``devs[0]`` goes by copy engine: every device
+    a distinct CUDA card, the first and each other able to reach each
+    other's memory directly."""
+    idx = [d.index for d in devs]
+    if any(d.type != "cuda" for d in devs) or None in idx or len(set(idx)) < len(idx):
+        return False
+    return all(torch.cuda.can_device_access_peer(idx[0], i)
+               and torch.cuda.can_device_access_peer(i, idx[0]) for i in idx[1:])
+
+
+class _ColumnGather:
+    """Per-device [R, L] blocks (the masks) gathered along keys into one
+    contiguous [R, D * L] tensor on the first device (the JAX
+    ``all_gather``): each block is written straight into its column slice,
+    with no per-device temporaries and no ``torch.cat``. Made once every
+    block's writes are queued; :meth:`join` returns the result.
+
+    On distinct CUDA cards that reach each other's memory, each slice is
+    one 2-D ``cudaMemcpy2DAsync`` (``ops/mesh_copy.py``; across cards the
+    copy engines move it over NVLink) on a side stream of the first card.
+    That stream waits on each card's current stream as it stands when the
+    gather is made, so on the blocks' writes and not on what the cards
+    queue after them: the copies run under that work.
+    :meth:`join` makes the first card's current stream wait on the copies,
+    and each source card's too, so that the caching allocator hands out no
+    block's memory again while a copy still reads it. Elsewhere (the CPU,
+    devices that shards share) each slice is a plain ``copy_`` on the
+    current stream, and a single block already on the first device is the
+    result itself. ``span`` names a device span around the copies, on the
+    stream that runs them.
+    """
+
+    def __init__(self, parts: Sequence[torch.Tensor], devs: Sequence[torch.device],
+                 span: str | None = None) -> None:
+        self._done = None
+        self._streams: list = []
+        self._parts = None
+        dev = devs[0]
+        if len(parts) == 1 and _on(parts[0], dev):
+            self.out = parts[0]
+            return
+        r, l = parts[0].shape
+        self.out = torch.empty((r, l * len(parts)), dtype=parts[0].dtype, device=dev)
+        engines = _copy_engines(devs)
+        where = contextlib.nullcontext()
+        if engines:
+            side = torch.cuda.Stream(device=dev)  # one of torch's pooled streams
+            self._streams = [torch.cuda.current_stream(d) for d in devs]
+            for d, stream in zip(devs, self._streams):
+                if d != dev:
+                    enable_peer_access(dev.index, d.index)
+                    enable_peer_access(d.index, dev.index)
+                side.wait_stream(stream)
+            where = torch.cuda.stream(side)
+        with where, device_span(span, dev) if span else contextlib.nullcontext():
+            # The other devices' blocks first: on an H100 the copy within the
+            # first card started only once SMs were free (in the fused step,
+            # as its leaf hash ended) and held back the copies queued behind it.
+            for s in [*range(1, len(parts)), 0]:
+                if engines:
+                    copy_columns(self.out, s * l, parts[s], side)
+                else:
+                    self.out[:, s * l:(s + 1) * l].copy_(parts[s])
+        if engines:
+            self._done = torch.cuda.Event()
+            self._done.record(side)
+            self._parts = list(parts)
+
+    def join(self) -> torch.Tensor:
+        """The gathered tensor, once every stream that wrote a block or
+        reads the result waits on the copies."""
+        if self._done is not None:
+            for stream in self._streams:
+                stream.wait_event(self._done)
+            self._done = self._parts = None
+        return self.out
+
+
 def _psum(parts: Sequence[torch.Tensor], dev: torch.device,
           mesh: Mesh | None = None) -> torch.Tensor:
     """Sum per-device tensors on ``dev`` (the JAX ``psum``); with a mesh
@@ -247,7 +332,7 @@ def sharded_divergence(
         divergence(dig, pres)
         for dig, pres in zip(_shards(digests, devs, 1), _shards(present, devs, 1, torch.bool))
     ))
-    return _gather(masks, devs[0], dim=1), _psum(counts, devs[0], mesh)
+    return _ColumnGather(masks, devs).join(), _psum(counts, devs[0], mesh)
 
 
 def _grid(mesh: Mesh, replica_axis: str, key_axis: str) -> np.ndarray:
@@ -382,12 +467,19 @@ def make_anti_entropy_step(mesh: Mesh, axis: str = "key"):
     function ``step(blocks, nblocks, digests, present)`` (the JAX package
     returns a compiled program):
 
-      1. hash every local (key, value) leaf on its shard's device;
-      2. reduce the local leaves to the shard's seam, copy the D seams to
+      1. compare R replicas' digest blocks elementwise on each shard's
+         device (masks and per-replica counts), and gather the masks on
+         the first device (:class:`_ColumnGather`: on distinct cards by
+         the copy engines, while the next steps run);
+      2. hash every local (key, value) leaf on its shard's device;
+      3. reduce the local leaves to the shard's seam, copy the D seams to
          the first device and finish the tree there (see the module's
          note: any L >= 1 leaves a shard; an odd L sends every leaf there);
-      3. compare R replicas' digest blocks elementwise and sum the
-         per-replica divergence counts.
+         sum the per-replica counts; wait for the masks.
+
+    The diff reads nothing the leaf hash writes, so running it first
+    changes no answer; it lets the masks cross to the first card while
+    the cards hash their leaves, and keeps the masks alive beside them.
 
     Inputs (global shapes, numpy arrays or tensors; N divisible by the
     mesh axis):
@@ -397,17 +489,22 @@ def make_anti_entropy_step(mesh: Mesh, axis: str = "key"):
       present [R, N] bool
     or the per-device form of each (one shard per device, already there:
     ``multihost.lift_local_shards``). Returns (root [8] int32, masks [R, N]
-    bool, counts [R] int32), all on the axis's first device. Across
-    processes the inputs are this rank's rows: root and counts cover every
-    rank and are the same on each, the masks are this rank's rows.
+    bool, counts [R] int32), all on the axis's first device; the masks are
+    one contiguous tensor. Across processes the inputs are this rank's
+    rows: root and counts cover every rank and are the same on each, the
+    masks are this rank's rows.
 
     While a profiler session records on the calling thread, a step is the
     device span ``ae.cycle`` on the first device; in it each shard's
-    ``ae.leaf``, ``ae.levels`` (its seam) and ``ae.diff`` (its masks and
-    counts) on the shard's device, then ``ae.combine`` on the first device
-    (the counts' sum, the tree's finish, the masks' gather), and inside it
-    ``ae.seam`` (the seams' gather and the tree's finish). Each step adds 1
-    to the counter ``device.ae_mesh_steps`` and to
+    ``ae.diff`` (its masks and counts) on the shard's device, then
+    ``ae.gather`` on the first device (the masks' copies, on the stream
+    that runs them: the side stream on distinct cards), then each shard's
+    ``ae.leaf`` and ``ae.levels`` (its seam), then ``ae.combine`` on the
+    first device (the counts' sum, the tree's finish, the wait for the
+    masks), and inside it ``ae.seam`` (the seams' gather and the tree's
+    finish) and ``ae.gather_wait`` (the first device's wait for the masks'
+    copies: the part of the gather the leaf hash did not hide). Each step
+    adds 1 to the counter ``device.ae_mesh_steps`` and to
     ``device.ae_combine_bytes`` the bytes of the seams, masks and counts of
     every shard after the first: what crosses to the first device when the
     shards are on distinct cards (across processes, this rank's).
@@ -418,25 +515,27 @@ def make_anti_entropy_step(mesh: Mesh, axis: str = "key"):
     def step(blocks, nblocks, digests, present):
         _shard_len(_rows(blocks, 0, d), d)
         with device_span("ae.cycle", devs[0]):
-            seams, masks, counts = [], [], []
-            for dev, blk, nb, dig, pres in zip(
-                devs, _shards(blocks, devs, 0), _shards(nblocks, devs, 0),
-                _shards(digests, devs, 1), _shards(present, devs, 1, torch.bool),
-            ):
+            masks, counts = [], []
+            for dev, dig, pres in zip(devs, _shards(digests, devs, 1),
+                                      _shards(present, devs, 1, torch.bool)):
+                with device_span("ae.diff", dev):
+                    m, c = divergence(dig, pres)
+                masks.append(m)
+                counts.append(c)
+            gather = _ColumnGather(masks, devs, "ae.gather")
+            seams = []
+            for dev, blk, nb in zip(devs, _shards(blocks, devs, 0), _shards(nblocks, devs, 0)):
                 with device_span("ae.leaf", dev):
                     leaves = hash_blocks(blk, nb)
                 with device_span("ae.levels", dev):
                     seams.append(_seam(leaves))
-                del leaves  # freed before the shard's diff allocates its masks
-                with device_span("ae.diff", dev):
-                    m, c = divergence(dig, pres)
-                    masks.append(m)
-                    counts.append(c)
+                del leaves  # freed before the next shard's leaves on a shared device
             with device_span("ae.combine", devs[0]):
                 total = _psum(counts, devs[0], mesh)
                 with device_span("ae.seam", devs[0]):
                     root = _finish_root(seams, devs[0], mesh)
-                gathered = _gather(masks, devs[0], dim=1)
+                with device_span("ae.gather_wait", devs[0]):
+                    gathered = gather.join()
         metrics = get_metrics()
         metrics.inc("device.ae_mesh_steps")
         metrics.inc("device.ae_combine_bytes",

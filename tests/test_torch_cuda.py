@@ -685,3 +685,89 @@ def test_sharded_diff_reads_each_shards_slice(dev):
         mesh, torch.from_numpy(dig.view(np.int32)).to(dev), torch.from_numpy(pres).to(dev))
     assert sc.LAUNCHES["diff"] == before + 4
     _check_diff(dig, pres, masks, counts)
+
+
+# ------------------------------------------------------------ the key-mesh step
+
+def _mesh_devices(dev, layout):
+    if layout == "one_card":
+        return [dev] * 4
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two or more CUDA cards")
+    return [torch.device("cuda", i) for i in range(count)]
+
+
+@pytest.mark.parametrize("layout", ["one_card", "every_card"])
+def test_mesh_steps_back_to_back_without_a_host_sync(dev, layout, monkeypatch):
+    """Three key-mesh steps queued back to back, the inputs salted in place
+    before each and no host sync between them; each step's answers are
+    copied at once on the first card. Every step's root, masks and counts
+    equal the single-device cycle's on the same salted inputs. Over
+    distinct cards the masks cross by the copy engines on side streams;
+    here a spin kernel (``torch.cuda._sleep``) holds each copy back on its
+    stream, so the copies end well after all else a step queues. Without
+    the first card's wait for them a step's masks are copied out before
+    they are whole; without a source card's wait the next step's diff
+    writes its masks where a copy has yet to read."""
+    from merklekv_tpu_torch.ops import mesh_copy
+    from merklekv_tpu_torch.parallel import sharded_merkle
+    from merklekv_tpu_torch.parallel.mesh import make_mesh
+
+    copy_columns = sharded_merkle.copy_columns
+
+    def held_back(dst, col, src, stream):
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(20_000_000)  # about 10 ms at the card's clock
+        copy_columns(dst, col, src, stream)
+
+    monkeypatch.setattr(sharded_merkle, "copy_columns", held_back)
+    devs = _mesh_devices(dev, layout)
+    d, r, l = len(devs), 64, 3 << 16
+    n = d * l
+    blocks = _words(51, (n, 1, 16), dev)
+    nblocks = torch.ones(n, dtype=torch.int32, device=dev)
+    digests = _words(52, (1, n, 8), dev).repeat(r, 1, 1)
+    present = torch.ones((r, n), dtype=torch.bool, device=dev)
+    present[5, 7::1009] = False
+    salts = [((k + 1) * 0x9E3779B1) & 0x7FFFFFFF for k in range(3)]
+    keys = [torch.arange(k, n, 61, device=dev) for k in range(3)]
+
+    def salt(k, blk, dig, idx):
+        blk[idx, 0, 3] ^= salts[k]
+        dig[1 + k, idx, k] ^= salts[k]
+
+    want = []
+    for k in range(3):
+        salt(k, blocks, digests, keys[k])
+        want.append(te.anti_entropy_forward(blocks, nblocks, digests, present, device=dev))
+        salt(k, blocks, digests, keys[k])
+    torch.cuda.synchronize(dev)
+
+    def shards(t, dim):
+        return [t.narrow(dim, s * l, l).to(devs[s], copy=True).contiguous() for s in range(d)]
+
+    sh = [shards(blocks, 0), shards(nblocks, 0), shards(digests, 1), shards(present, 1)]
+    local = [[(keys[k][(keys[k] >= s * l) & (keys[k] < (s + 1) * l)] - s * l).to(devs[s])
+              for s in range(d)] for k in range(3)]
+    for x in set(devs):
+        torch.cuda.synchronize(x)
+    step = sharded_merkle.make_anti_entropy_step(make_mesh({"key": d}, devices=devs))
+    engines = sharded_merkle._copy_engines(devs)
+    before = mesh_copy.COPIES["2d"]
+    got = []
+    for k in range(3):
+        for s in range(d):
+            if k:
+                salt(k - 1, sh[0][s], sh[2][s], local[k - 1][s])
+            salt(k, sh[0][s], sh[2][s], local[k][s])
+        root, masks, counts = step(*sh)
+        got.append((root.clone(), masks.clone(), counts.clone()))
+    for x in set(devs):
+        torch.cuda.synchronize(x)
+    assert mesh_copy.COPIES["2d"] - before == (3 * d if engines else 0)
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g[0], w[0]), f"step {k}: root"
+        assert torch.equal(g[2], w[2]), f"step {k}: counts"
+        bad = (g[1] != w[1]).sum().item()
+        assert bad == 0, f"step {k}: {bad} mask bytes differ"

@@ -28,6 +28,11 @@ from merklekv_tpu_torch.utils import tracing
 
 CPU = torch.device("cpu")
 PHASES = ["ae.leaf", "ae.levels", "ae.diff"]
+# A key-mesh step of 4 shards: every shard's diff, the masks' gather, every
+# shard's leaf hash and seam, then the combine with the seam and the wait
+# for the masks inside it.
+MESH_SPANS = ["ae.cycle", *["ae.diff"] * 4, "ae.gather", *["ae.leaf", "ae.levels"] * 4,
+              "ae.combine", "ae.seam", "ae.gather_wait"]
 
 
 def _inputs(n=16, b=2, r=3, seed=7):
@@ -121,11 +126,11 @@ def test_sharded_step_records_each_shard_and_one_combine():
     for a, b in zip(on, te.anti_entropy_forward(*args, device=CPU)):
         assert torch.equal(a, b)
     recs = tracing.device_spans()
-    assert [s["name"] for s in recs] == ["ae.cycle", *PHASES * 4, "ae.combine", "ae.seam"]
+    assert [s["name"] for s in recs] == MESH_SPANS
     top = recs[0]
     assert all(s["root"] == top["id"] for s in recs[1:])
-    assert all(s["parent"] == top["id"] for s in recs[1:-1])
-    assert recs[-1]["parent"] == recs[-2]["id"]
+    assert all(s["parent"] == top["id"] for s in recs[1:-2])
+    assert recs[-1]["parent"] == recs[-2]["parent"] == recs[-3]["id"]
 
 
 def _counters():
@@ -157,6 +162,38 @@ def test_the_seam_span_and_the_combine_counters():
     assert seam["parent"] == combine["id"] and combine["parent"] == cycle["id"]
     assert seam["device"] == combine["device"] == cycle["device"]
     assert combine["host_ns"][0] <= seam["host_ns"][0] <= seam["host_ns"][1] <= combine["host_ns"][1]
+
+
+def test_the_gather_spans_and_the_combine_bytes():
+    """The masks' gather is ``ae.gather`` after the last shard's diff and
+    before the first leaf hash, on the first device; the wait for it is
+    ``ae.gather_wait`` inside ``ae.combine``, after ``ae.seam``. A step
+    still counts the bytes of shards 1-3's seams, masks and counts, and
+    the masks it returns are one contiguous [R, N] tensor equal to the
+    shards' own masks side by side."""
+    mesh = make_mesh({"key": 4}, devices=[CPU] * 4)
+    step = sharded_merkle.make_anti_entropy_step(mesh)
+    args = _inputs(n=24)
+    r = args[2].shape[0]
+    steps0, bytes0 = _counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _root, masks, _counts = step(*args)
+    assert _counters() == (steps0 + 1, bytes0 + 3 * (3 * 8 * 4 + r * 6 + r * 4))
+    want = torch.cat([dispatch.divergence(args[2][:, s * 6:(s + 1) * 6],
+                                          args[3][:, s * 6:(s + 1) * 6])[0] for s in range(4)],
+                     dim=1)
+    assert masks.is_contiguous() and masks.shape == (r, 24) and torch.equal(masks, want)
+    recs = tracing.device_spans()
+    by = {s["name"]: s for s in recs}
+    cycle, gather, wait, combine = (by[n] for n in ("ae.cycle", "ae.gather", "ae.gather_wait",
+                                                    "ae.combine"))
+    assert gather["parent"] == cycle["id"] and gather["device"] == cycle["device"]
+    last_diff = [s for s in recs if s["name"] == "ae.diff"][-1]["host_ns"][1]
+    first_leaf = next(s for s in recs if s["name"] == "ae.leaf")["host_ns"][0]
+    assert last_diff <= gather["host_ns"][0] <= gather["host_ns"][1] <= first_leaf
+    assert wait["parent"] == combine["id"] and wait["device"] == combine["device"]
+    assert by["ae.seam"]["host_ns"][1] <= wait["host_ns"][0] <= wait["host_ns"][1]
+    assert wait["host_ns"][1] <= combine["host_ns"][1]
 
 
 def test_no_span_outside_the_cycle():

@@ -10,8 +10,10 @@ everywhere: bit-identical (exact equality of words, digests and masks).
 Covered: ``make_mesh``; ``sharded_tree_root`` for D in {1, 2, 4, 8} and
 per-shard sizes {1, 2, 16}, a keyspace that does not split raising;
 ``sharded_divergence``, ``sharded_divergence_2d`` and
-``sharded_anti_entropy_step``; the root and the step over shards of any
-length (D in {2, 3, 4, 8}, L in {1, 3, 6, ..., 64}: levels that cross the
+``sharded_anti_entropy_step``, the masks of the first and the last
+gathered in place (one contiguous [R, N] tensor, each shard's own masks in
+its columns); the root and the step over shards of any
+length (D in {1, 2, 3, 4, 8}, L in {1, 3, 6, ..., 64}: levels that cross the
 seams between shards and promote odd nodes) against ``portbench``'s plain
 reference and the JAX package's unsharded ``tree_root``, where the JAX
 sharded functions refuse a per-shard size that is not a power of two; the sharded
@@ -55,6 +57,7 @@ from merklekv_tpu_torch.merkle.packing import pack_leaves
 from merklekv_tpu_torch.native_bindings import NativeEngine
 from merklekv_tpu_torch.obs.flightrec import get_recorder
 from merklekv_tpu_torch.obs.metrics import get_metrics
+from merklekv_tpu_torch.ops import dispatch
 from merklekv_tpu_torch.ops import merkle_paths as mp
 from merklekv_tpu_torch.parallel import (
     ShardedDeviceMerkleState,
@@ -160,7 +163,7 @@ def test_sharded_tree_root_rejects_bad_shapes(n):
         assert torch.equal(got, ref_tree.tree_root(torch.from_numpy(leaves.view(np.int32))))
 
 
-RAGGED_D = [2, 3, 4, 8]
+RAGGED_D = [1, 2, 3, 4, 8]
 RAGGED_L = [1, 3, 6, 12, 20, 33, 48, 64]
 
 
@@ -190,7 +193,9 @@ RAGGED_GOLDEN_99 = "efbf7cdbaf3397cf85bc649824706278e324042a91827f9d0175e50f033c
 def test_sharded_anti_entropy_step_over_shards_of_any_length(d, per_shard):
     """The fused step at N = D * L for any L: root, masks and counts equal
     the plain reference's ``tree_root`` and ``diff_masks`` over the whole
-    keyspace, and the root the JAX package's unsharded ``tree_root``."""
+    keyspace, and the root the JAX package's unsharded ``tree_root``. The
+    masks are one contiguous [R, N] tensor on the first device, each
+    shard's own ``divergence`` masks in its column slice."""
     n = d * per_shard
     keys, vals = _records(n)
     packed = pack_leaves(keys, vals)
@@ -209,9 +214,22 @@ def test_sharded_anti_entropy_step_over_shards_of_any_length(d, per_shard):
     want = ref_tree.diff_masks(torch.from_numpy(dig.view(np.int32)), torch.from_numpy(pres))
     assert torch.equal(masks, want)
     assert torch.equal(counts, want.sum(dim=1, dtype=torch.int32))
+    _assert_gathered(masks, dig, pres, d)
     if n == 99:
         assert words_np(root).astype(">u4").tobytes().hex() == RAGGED_GOLDEN_99
         assert _golden_root(zip(keys, vals)) == RAGGED_GOLDEN_99
+
+
+def _assert_gathered(masks, dig, pres, d):
+    """``masks`` is one contiguous [R, N] tensor on the CPU equal to
+    ``torch.cat`` of each of the d shards' own ``divergence`` masks."""
+    r, n = pres.shape
+    l = n // d
+    shards = [dispatch.divergence(torch.from_numpy(dig[:, s * l:(s + 1) * l].view(np.int32)),
+                                  torch.from_numpy(pres[:, s * l:(s + 1) * l]))[0]
+              for s in range(d)]
+    assert masks.device == torch.device("cpu") and masks.is_contiguous()
+    assert tuple(masks.shape) == (r, n) and torch.equal(masks, torch.cat(shards, dim=1))
 
 
 def _replicas(seed, r, n):
@@ -225,15 +243,17 @@ def _replicas(seed, r, n):
     return dig, pres
 
 
-@pytest.mark.parametrize("d", [2, 8])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 8])
 def test_sharded_divergence_matches_jax(d):
-    dig, pres = _replicas(d, 5, 64)
+    dig, pres = _replicas(d, 5, 96)
     jm, jc = jsm.sharded_divergence(_jmesh({"key": d}), dig, pres)
     tm, tc = sharded_divergence(make_mesh({"key": d}, devices=CPU8), dig, pres)
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
-    with pytest.raises(ValueError, match="not divisible"):
-        sharded_divergence(make_mesh({"key": d}, devices=CPU8), dig[:, :63], pres[:, :63])
+    _assert_gathered(tm, dig, pres, d)
+    if d > 1:
+        with pytest.raises(ValueError, match="not divisible"):
+            sharded_divergence(make_mesh({"key": d}, devices=CPU8), dig[:, :95], pres[:, :95])
 
 
 @pytest.mark.parametrize("dr,dk", [(1, 8), (2, 4), (4, 2)])
