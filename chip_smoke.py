@@ -487,20 +487,18 @@ def path_kernel_ms(levels, scratch, blocks, nblocks, pos, reps: int) -> float:
     (without the wrapper's checks and its copy of the positions)."""
     import torch
 
+    from merklekv_tpu_torch.ops import cuda_lib
     from merklekv_tpu_torch.ops import merkle_paths as mp
-    from merklekv_tpu_torch.ops.sha256_cuda import _stream
 
     dev = levels[0].device
     c = int(levels[0].shape[0])
-    lib, st = mp._lib(), mp._levels_struct(levels, dev)
+    st = mp._levels_struct(levels, dev)
     pos_t = torch.from_numpy(np.asarray(pos, np.int32)).to(dev)
 
     def launch() -> None:
-        rc = lib.mkv_path_rehash(st, blocks.data_ptr(), nblocks.data_ptr(), pos_t.data_ptr(),
-                                 len(pos), blocks.shape[1], mp.PATH_WIDTH, mp._path_top(c),
-                                 scratch.data_ptr(), _stream(dev))
-        if rc:
-            raise RuntimeError(f"path_rehash kernel failed to launch: {rc}")
+        cuda_lib.launch("mkv_path_rehash", dev, st, blocks.data_ptr(), nblocks.data_ptr(),
+                        pos_t.data_ptr(), len(pos), blocks.shape[1], mp.PATH_WIDTH,
+                        mp._path_top(c), scratch.data_ptr())
 
     return event_ms(launch, reps)
 
@@ -548,7 +546,7 @@ def phase_build() -> dict:
     from concurrent.futures import ThreadPoolExecutor
 
     from merklekv_tpu_torch import native_bindings
-    from merklekv_tpu_torch.ops.sha256_cuda import build_kernels
+    from merklekv_tpu_torch.ops.cuda_lib import build_kernels
 
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
@@ -683,11 +681,11 @@ def phase_paths(dev, rng: np.random.Generator, depth: int = 20) -> dict:
     path-rehash kernel's device time on each position set."""
     import torch
 
-    from merklekv_tpu_torch.merkle.incremental import _reduce_levels
     from merklekv_tpu_torch.ops import merkle_paths as mp
+    from merklekv_tpu_torch.ops.dispatch import build_levels
 
     c = 1 << depth
-    base = _reduce_levels(rand_words(rng, (c, 8), dev))
+    base = build_levels(rand_words(rng, (c, 8), dev))
     errs = {"path_rehash": 0, "promotion_chain": 0}
     # (what, sorted positions, blocks per leaf, least valid block count)
     cases = [(what, pos, 2, 0) for what, pos in path_sets(rng, c).items()]
@@ -772,7 +770,7 @@ def phase_rebuild(dev, seed: int, n_keys: int = REBUILD_KEYS, n_rep: int = REPLI
     from merklekv_tpu_torch.merkle.torch_engine import anti_entropy_forward, tree_root
     from merklekv_tpu_torch.ops import sha256 as plain
     from merklekv_tpu_torch.ops.dispatch import hash_blocks
-    from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
+    from merklekv_tpu_torch.ops.cuda_lib import LAUNCHES, reset_launch_counts
 
     t0 = time.perf_counter()
     keys, values = make_kv(n_keys)
@@ -845,7 +843,7 @@ def phase_serving(dev, seed: int, n_tree: int = TREE_KEYS, batch: int = BATCH,
     from merklekv_tpu_torch.device.guard import get_guard
     from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
     from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState
-    from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
+    from merklekv_tpu_torch.ops.cuda_lib import LAUNCHES, reset_launch_counts
 
     rng = np.random.default_rng(seed + 1)
     items = [(b"inc:%09d" % i, b"v%d" % i) for i in range(n_tree)]
@@ -1034,7 +1032,7 @@ def phase_mirror(dev, seed: int, n_tree: int = TREE_KEYS, batch: int = BATCH,
     from merklekv_tpu_torch.cluster.mirror import DeviceTreeMirror
     from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
     from merklekv_tpu_torch.obs.flightrec import get_recorder
-    from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
+    from merklekv_tpu_torch.ops.cuda_lib import LAUNCHES, reset_launch_counts
 
     rng = np.random.default_rng(seed + 2)
     items = [(b"inc:%09d" % i, b"v%d" % i) for i in range(n_tree)]
@@ -1232,7 +1230,7 @@ def phase_fault_drill(dev, seed: int, n_keys: int = DRILL_KEYS) -> dict:
     from merklekv_tpu_torch.cluster.mirror import DeviceTreeMirror
     from merklekv_tpu_torch.device.guard import configure
     from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
-    from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
+    from merklekv_tpu_torch.ops.cuda_lib import LAUNCHES, reset_launch_counts
     from merklekv_tpu_torch.testing.device_faults import DeviceFaultInjector
 
     rng = np.random.default_rng(seed + 3)
@@ -1380,7 +1378,7 @@ def phase_surface(dev, seed: int, n_tree: int = TREE_KEYS, batch: int = BATCH) -
     rungs ``on_step`` saw, and roots and slices against the golden tree."""
     from merklekv_tpu_torch.device.ladder import build_state_with_ladder
     from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
-    from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
+    from merklekv_tpu_torch.ops.cuda_lib import LAUNCHES, reset_launch_counts
     from merklekv_tpu_torch.testing.device_faults import DeviceFaultInjector
 
     t_phase = time.perf_counter()
@@ -1447,7 +1445,7 @@ def phase_profile(dev, seed: int, want_root: str, n_tree: int = TREE_KEYS,
     import tempfile
 
     from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState
-    from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
+    from merklekv_tpu_torch.ops.cuda_lib import LAUNCHES, reset_launch_counts
     from merklekv_tpu_torch.utils import device_profile as profile_trace
 
     items, update, _ = surface_data(seed, n_tree, batch)
@@ -1508,19 +1506,19 @@ class Launches:
     single-device references in between are left out."""
 
     def __init__(self) -> None:
-        from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES
+        from merklekv_tpu_torch.ops.cuda_lib import LAUNCHES
 
         self.total = dict.fromkeys(LAUNCHES, 0)
         self.last: dict = {}
 
     def __enter__(self):
-        from merklekv_tpu_torch.ops.sha256_cuda import reset_launch_counts
+        from merklekv_tpu_torch.ops.cuda_lib import reset_launch_counts
 
         reset_launch_counts()
         return self
 
     def __exit__(self, *exc) -> None:
-        from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES
+        from merklekv_tpu_torch.ops.cuda_lib import LAUNCHES
 
         self.last = dict(LAUNCHES)
         for k, v in self.last.items():
@@ -1543,9 +1541,10 @@ def phase_sharded(dev, seed: int, reb: dict, errs: dict, n_tree: int = TREE_KEYS
     from merklekv_tpu_torch.merkle import diff as tdiff
     from merklekv_tpu_torch.merkle.cpu import ref_level_sizes
     from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
-    from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState, _reduce_levels
+    from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState
     from merklekv_tpu_torch.merkle.torch_engine import anti_entropy_forward
     from merklekv_tpu_torch.ops import merkle_paths as mp
+    from merklekv_tpu_torch.ops.dispatch import build_levels
     from merklekv_tpu_torch.parallel import (
         ShardedDeviceMerkleState,
         make_mesh,
@@ -1568,7 +1567,7 @@ def phase_sharded(dev, seed: int, reb: dict, errs: dict, n_tree: int = TREE_KEYS
     # 1M-key tree (2^20 / D leaves, a batch's share of positions) and the
     # top tree's chain over D shard roots.
     lsh = (1 << (n_tree - 1).bit_length()) // d
-    base = _reduce_levels(rand_words(rng, (lsh, 8), dev))
+    base = build_levels(rand_words(rng, (lsh, 8), dev))
     pos = np.sort(rng.choice(lsh, size=batch // d, replace=False))
     blocks = rand_words(rng, (len(pos), 1, 16), dev)
     nblocks = torch.ones(len(pos), dtype=torch.int32, device=dev)
@@ -1576,7 +1575,7 @@ def phase_sharded(dev, seed: int, reb: dict, errs: dict, n_tree: int = TREE_KEYS
     mp.path_rehash_cuda(got, mp.path_scratch(lsh, dev), blocks, nblocks, pos)
     mp.path_rehash(want, blocks, nblocks, pos)
     err = max(u32_max_abs_err(g, w) for g, w in zip(got, want))
-    top = _reduce_levels(rand_words(rng, (d, 8), dev))
+    top = build_levels(rand_words(rng, (d, 8), dev))
     for n in range(1, d + 1):
         err_c = u32_max_abs_err(mp.promotion_chain_cuda(top, n), mp.promotion_chain(top, n))
         errs["promotion_chain"] = max(errs["promotion_chain"], err_c)
@@ -2037,7 +2036,7 @@ def phase_node_sync(seed: int, n_keys: int = NODE_KEYS, batch: int = BATCH,
 
     from merklekv_tpu_torch.cluster.sync import _DEVICE_THRESHOLD
     from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
-    from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
+    from merklekv_tpu_torch.ops.cuda_lib import LAUNCHES, reset_launch_counts
 
     rng = np.random.default_rng(seed + 9)
     items = _node_items(n_keys)
@@ -2248,7 +2247,7 @@ def phase_durable(seed: int, n_keys: int = DURABLE_KEYS, batch: int = BATCH) -> 
 
     from merklekv_tpu_torch.__main__ import parse_config, start
     from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
-    from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
+    from merklekv_tpu_torch.ops.cuda_lib import LAUNCHES, reset_launch_counts
     from merklekv_tpu_torch.storage import snapshot as snapmod
 
     t_phase = time.perf_counter()
@@ -2402,7 +2401,7 @@ _NODE_BOOT = r"""
 import json, os, runpy, signal, sys
 
 def _dump(signum, frame):
-    mod = sys.modules.get("merklekv_tpu_torch.ops.sha256_cuda")
+    mod = sys.modules.get("merklekv_tpu_torch.ops.cuda_lib")
     counts = dict(mod.LAUNCHES) if mod is not None else {}
     paths = sys.modules.get("merklekv_tpu_torch.ops.merkle_paths")
     counts["path_ks"] = dict(paths.PATH_KS) if paths is not None else {}
@@ -2493,6 +2492,8 @@ class _PartCluster:
         import os
         import signal
 
+        from merklekv_tpu_torch.ops.cuda_lib import LAUNCHES
+
         proc = self.procs[name]
         path = os.path.join(self.launch_dir, f"{proc.pid}.json")
         if os.path.exists(path):
@@ -2507,8 +2508,7 @@ class _PartCluster:
             got = json.load(f)
         self.path_ks[proc.pid] = collections.Counter(
             {int(k): n for k, n in got.get("path_ks", {}).items()})
-        return {k: int(got.get(k, 0)) for k in ("leaf", "node_level", "node_pairs",
-                                                 "path_rehash", "promotion_chain", "diff")}
+        return {k: int(got.get(k, 0)) for k in LAUNCHES}
 
     def kill9(self, name: str) -> None:
         """SIGKILL ``name`` after reading its launch counts."""
@@ -3008,7 +3008,7 @@ def rank_main(backend: str, seed: int, n_keys: int) -> int:
 
     from merklekv_tpu_torch.merkle.packing import pack_leaves
     from merklekv_tpu_torch.ops.sha256 import digest_to_bytes
-    from merklekv_tpu_torch.ops.sha256_cuda import LAUNCHES, reset_launch_counts
+    from merklekv_tpu_torch.ops.cuda_lib import LAUNCHES, reset_launch_counts
     from merklekv_tpu_torch.parallel import multihost, sharded_anti_entropy_step
     from merklekv_tpu_torch.utils.torchenv import words_np
 
@@ -3173,10 +3173,10 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
     import torch
 
     from merklekv_tpu_torch.merkle.cpu import ref_level_sizes
-    from merklekv_tpu_torch.merkle.incremental import _reduce_levels
     from merklekv_tpu_torch.ops import merkle_paths as mp
     from merklekv_tpu_torch.ops import sha256 as plain
     from merklekv_tpu_torch.ops.diff_cuda import divergence_cuda, divergence_plain
+    from merklekv_tpu_torch.ops.dispatch import build_levels
     from merklekv_tpu_torch.ops.sha256_cuda import (
         leaf_digests_cuda,
         node_level_cuda,
@@ -3193,7 +3193,7 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
     # The serving path's shapes: a batch of 4096 one-block leaves at random
     # positions of the 2^20-leaf tree, and the chain over 1M live keys.
     depth = (TREE_KEYS - 1).bit_length()
-    tree = _reduce_levels(rand_words(rng, (1 << depth, 8), dev))
+    tree = build_levels(rand_words(rng, (1 << depth, 8), dev))
     tree_plain = [lv.clone() for lv in tree]
     scratch = mp.path_scratch(1 << depth, dev)
     pos = np.sort(rng.choice(1 << depth, size=BATCH, replace=False))

@@ -2,12 +2,12 @@
 // that diverge from replica 0, and the [R] per-replica counts, in one pass
 // over the digests.
 //
-// Built at first use by merklekv_tpu_torch/ops/sha256_cuda.py with
+// Built at first use by merklekv_tpu_torch/ops/cuda_lib.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
 // in parallel with the other sources, and linked with them into one
 // library with a plain C interface (mkv_error_string is defined in
-// sha256_kernels.cu); the ctypes binding of mkv_divergence is in
-// ops/diff_cuda.py. The launcher takes PyTorch's current stream, allocates
+// sha256_kernels.cu); cuda_lib.py binds mkv_divergence with ctypes and
+// ops/diff_cuda.py wraps it. The launcher takes PyTorch's current stream, allocates
 // nothing, never synchronises, and returns cudaGetLastError() right after
 // the launch (0 = launched).
 //

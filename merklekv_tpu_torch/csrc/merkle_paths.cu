@@ -2,11 +2,12 @@
 // path-rehash launch per value batch, and one promotion-chain launch per
 // tree version.
 //
-// Built at first use by merklekv_tpu_torch/ops/sha256_cuda.py with
+// Built at first use by merklekv_tpu_torch/ops/cuda_lib.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
-// in parallel with sha256_kernels.cu, and linked with it into one library
-// with a plain C interface (mkv_error_string is defined there); the ctypes
-// binding of the entry points below is in ops/merkle_paths.py. Every
+// in parallel with the other sources, and linked with them into one library
+// with a plain C interface (mkv_error_string is defined in
+// sha256_kernels.cu); cuda_lib.py binds the entry points below with ctypes
+// and ops/merkle_paths.py wraps them. Every
 // launcher takes PyTorch's current stream, allocates nothing, never
 // synchronises, and returns cudaGetLastError() right after the launch
 // (0 = launched).
@@ -215,8 +216,9 @@ int mkv_hash_chain(const void* in, int32_t nblk, int32_t d, void* out, void* tim
   return static_cast<int>(cudaGetLastError());
 }
 
-// The path-rehash kernel's blocks per arrival group: ops/merkle_paths.py
-// sizes the scratch with it and checks its own copy against this one.
+// The path-rehash kernel's blocks per arrival group: ops/cuda_lib.py checks
+// its PATH_GROUP, with which ops/merkle_paths.py sizes the scratch, against
+// this one when the library loads.
 int mkv_path_group() { return kMkvGroup; }
 
 int mkv_path_rehash(const MkvLevels* levels, const void* blocks, const void* nblocks,

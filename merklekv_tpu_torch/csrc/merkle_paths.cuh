@@ -83,8 +83,8 @@ constexpr int kMkvPathThreads = 128;
 // (C >> l) + n, the root at 1), fewer than 4 kMkvTopNodes digests.
 constexpr int kMkvTopNodes = 128;
 // Blocks per arrival group: the most cuts a finishing block walks per level
-// (ops/merkle_paths.py sizes the scratch with the same number; a rehearsal
-// may define a smaller group, to have many groups on small trees).
+// (PATH_GROUP of ops/cuda_lib.py, which sizes the scratch, is the same; a
+// rehearsal may define a smaller group, to have many groups on small trees).
 #ifndef MKV_PATH_GROUP
 #define MKV_PATH_GROUP 128
 #endif

@@ -1,11 +1,12 @@
 // Copy-engine copies for the key mesh's masks gather: each card's [R, L]
 // masks into their column slice of one [R, N] result on the first card.
 //
-// Built at first use by merklekv_tpu_torch/ops/sha256_cuda.py with
+// Built at first use by merklekv_tpu_torch/ops/cuda_lib.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
 // in parallel with the other sources, and linked with them into one
 // library with a plain C interface (mkv_error_string is defined in
-// sha256_kernels.cu); the ctypes binding is in ops/mesh_copy.py. Host code
+// sha256_kernels.cu); cuda_lib.py binds the entry points with ctypes and
+// ops/mesh_copy.py wraps them. Host code
 // only: no kernel. The copy takes the caller's stream, allocates nothing,
 // never synchronises, and returns its error code (0 = queued).
 //

@@ -1,10 +1,11 @@
 // Batched SHA-256 kernels for Hopper (sm_90a): leaf digests, adjacent-row
 // tree levels, and separate left/right parent pairs.
 //
-// Built at first use by merklekv_tpu_torch/ops/sha256_cuda.py with
+// Built at first use by merklekv_tpu_torch/ops/cuda_lib.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
-// in parallel with merkle_paths.cu, and linked with it into one library with
-// a plain C interface, bound with ctypes. Every launcher
+// in parallel with the other csrc/*.cu, and linked with them into one
+// library with a plain C interface; cuda_lib.py binds the entry points with
+// ctypes and ops/sha256_cuda.py wraps them. Every launcher
 // takes PyTorch's current stream, allocates nothing, never synchronises, and
 // returns cudaGetLastError() right after the launch (0 = launched).
 //

@@ -12,8 +12,10 @@ The JAX package left the predicate to XLA outside any Pallas kernel; here
 ``divergence_masks`` goes through ``ops.dispatch.divergence``: on a CUDA
 tensor one hand-written kernel (``csrc/diff_kernels.cu``) that reads every
 digest once and writes the masks and the per-replica counts in the same
-pass, on a CPU tensor :func:`divergence_vs_ref`, the one predicate both
-share. ``divergence_masks_np`` is a copy of the JAX package's host twin.
+pass, on a CPU tensor ``divergence_vs_ref``, the one predicate both
+share (defined in ``ops/diff_cuda.py``, exported here as the JAX module
+exports it). ``divergence_masks_np`` is a copy of the JAX package's host
+twin.
 ``divergence_masks_engine`` is the engine boundary the anti-entropy
 manager calls: past ``SHARDED_DIFF_MIN_KEYS`` on a host with two or more
 devices it shards the comparison over them
@@ -29,6 +31,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from merklekv_tpu_torch.ops.diff_cuda import divergence_vs_ref
 from merklekv_tpu_torch.ops.dispatch import divergence
 from merklekv_tpu_torch.utils.torchenv import as_tensor, resolve_device
 
@@ -91,15 +94,6 @@ def align_replicas(replicas: Sequence[dict[bytes, bytes]]) -> AlignedReplicas:
             digests[ri, i] = np.frombuffer(h, ">u4").astype(np.uint32)
             present[ri, i] = True
     return AlignedReplicas(keys, digests, present)
-
-
-def divergence_vs_ref(digests, present, ref_d, ref_p):
-    """THE divergence predicate: a key diverges iff presence differs or both
-    are present with different digests. Written with methods and operators
-    only, so it runs on numpy arrays and on torch tensors alike."""
-    same_digest = (digests == ref_d).all(axis=-1)
-    both_present = present & ref_p
-    return (present != ref_p) | (both_present & ~same_digest)
 
 
 def divergence_masks(digests: torch.Tensor, present: torch.Tensor) -> torch.Tensor:

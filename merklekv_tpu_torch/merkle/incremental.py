@@ -57,8 +57,8 @@ from merklekv_tpu_torch.device.guard import DispatchHungError, get_guard
 from merklekv_tpu_torch.merkle.cpu import ref_level_sizes as _ref_level_sizes
 from merklekv_tpu_torch.merkle.packing import PackedLeaves, pack_leaves
 from merklekv_tpu_torch.ops.dispatch import (
+    build_levels,
     hash_blocks,
-    hash_node_level,
     path_scratch,
     promotion_chain,
     rehash_paths,
@@ -74,17 +74,6 @@ _T = TypeVar("_T")
 
 def _next_pow2(n: int) -> int:
     return 1 << max(1, (n - 1).bit_length())
-
-
-def _reduce_levels(leaves: torch.Tensor) -> list[torch.Tensor]:
-    """All padded-tree levels bottom-up. Capacity is a power of two, so every
-    level is even and the adjacent-row level kernel applies throughout."""
-    levels = [leaves]
-    cur = leaves
-    while cur.shape[0] > 1:
-        cur = hash_node_level(cur)
-        levels.append(cur)
-    return levels
 
 
 class DeviceMerkleState:
@@ -416,7 +405,7 @@ class DeviceMerkleState:
         def go() -> list[torch.Tensor]:
             padded = torch.zeros((c, 8), dtype=torch.int32, device=self._device)
             padded[:packed.n] = hash_blocks(self._put(packed.blocks), self._put(packed.nblocks))
-            return _reduce_levels(padded)
+            return build_levels(padded)
 
         return self._run("build", go)
 
@@ -445,7 +434,7 @@ class DeviceMerkleState:
             if len(fresh_pos):
                 base.index_put_((self._put(fresh_pos, torch.int64),),
                                 hash_blocks(self._put(fresh.blocks), self._put(fresh.nblocks)))
-            return _reduce_levels(base)
+            return build_levels(base)
 
         return self._run("restructure", go)
 

@@ -1,4 +1,4 @@
-"""The N-replica diff: the plain version and the CUDA wrapper.
+"""The N-replica diff: the predicate, its plain version and the CUDA wrapper.
 
 One pass over R replicas' leaf digests and presence gives the ``[R, N]``
 masks of the keys that diverge from replica 0 and the ``[R]`` int32 counts
@@ -6,60 +6,38 @@ of each row. The JAX package runs the predicate
 (``merklekv_tpu/merkle/diff.py:98``) under ``jit``, where XLA fuses it into
 one pass; on the card it is one hand-written kernel,
 ``csrc/diff_kernels.cu``, whose note says what bounds it and what its
-design does about that. The predicate itself is
-``merkle/diff.py::divergence_vs_ref`` in Python and
-``mkv_key_diverges`` (``csrc/diff_kernels.cuh``) in the kernel.
+design does about that. The predicate itself is :func:`divergence_vs_ref`
+here and ``mkv_key_diverges`` (``csrc/diff_kernels.cuh``) in the kernel.
 
-The wrapper (``divergence_cuda``), as in ``ops/sha256_cuda.py``:
-- tensors on the CPU run the plain version below (``divergence_vs_ref``
-  itself plus the int32 row sum); that is the only case that does;
-- CUDA tensors are checked (dtypes, shapes, one device) and the kernel is
-  launched under ``torch.cuda.device`` of the digests, on that device's
-  current stream, or the wrapper raises (a failed build or a refused
-  launch is an error, never a fallback). A key-axis slice of a larger
-  tensor is read where it lies: only inputs whose key or word axis is not
-  contiguous are copied;
-- no keys or no replicas give empty outputs without a launch;
-- ``LAUNCHES["diff"]`` counts the launches, incremented at the launch and
-  nowhere else.
+The wrapper (``divergence_cuda``) keeps the contract of
+``ops/cuda_lib.py``; a key-axis slice of a larger tensor is read where it
+lies: only inputs whose key or word axis is not contiguous are copied.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from merklekv_tpu_torch.ops.sha256_cuda import (
-    LAUNCHES,
-    _check_rc,
-    _is_cpu,
-    _stream,
-    build_kernels,
-)
+from merklekv_tpu_torch.ops.cuda_lib import is_cpu, launch
 
-__all__ = ["divergence_plain", "divergence_cuda"]
+__all__ = ["divergence_vs_ref", "divergence_plain", "divergence_cuda"]
+
+
+def divergence_vs_ref(digests, present, ref_d, ref_p):
+    """THE divergence predicate: a key diverges iff presence differs or both
+    are present with different digests. Written with methods and operators
+    only, so it runs on numpy arrays and on torch tensors alike."""
+    same_digest = (digests == ref_d).all(axis=-1)
+    both_present = present & ref_p
+    return (present != ref_p) | (both_present & ~same_digest)
 
 
 def divergence_plain(digests: torch.Tensor, present: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The plain version: ``merkle.diff.divergence_vs_ref`` against row 0
-    and the int32 sum of each row of its masks."""
-    # Imported here: merkle/diff.py imports this module through dispatch.
-    from merklekv_tpu_torch.merkle.diff import divergence_vs_ref
-
+    """The plain version: :func:`divergence_vs_ref` against row 0 and the
+    int32 sum of each row of its masks."""
     masks = divergence_vs_ref(digests, present, digests[0:1], present[0:1])
     return masks, masks.sum(dim=1, dtype=torch.int32)
-
-
-def _lib() -> ctypes.CDLL:
-    """The kernel library (``ops/sha256_cuda.py`` builds it) with
-    ``mkv_divergence`` bound."""
-    lib = build_kernels().lib
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-    lib.mkv_divergence.argtypes = [p, i64, p, i64, p, p, i64, i32, p]
-    lib.mkv_divergence.restype = ctypes.c_int
-    return lib
 
 
 def divergence_cuda(digests: torch.Tensor, present: torch.Tensor
@@ -67,7 +45,7 @@ def divergence_cuda(digests: torch.Tensor, present: torch.Tensor
     """[R, N, 8] int32 digests (uint32 bits) + [R, N] bool presence ->
     ([R, N] bool masks, row 0 all False, of the keys that diverge from
     replica 0; [R] int32 counts of each row), in one launch on the card."""
-    if _is_cpu(digests, present):
+    if is_cpu(digests, present):
         return divergence_plain(digests, present)
     dev = digests.device
     if present.device != dev:
@@ -87,13 +65,7 @@ def divergence_cuda(digests: torch.Tensor, present: torch.Tensor
     r, n = digests.shape[0], digests.shape[1]
     masks = torch.empty((r, n), dtype=torch.bool, device=dev)
     counts = torch.zeros(r, dtype=torch.int32, device=dev)
-    if r == 0 or n == 0:
-        return masks, counts
-    lib = _lib()
-    with torch.cuda.device(dev):
-        rc = lib.mkv_divergence(digests.data_ptr(), digests.stride(0), present.data_ptr(),
-                                present.stride(0), masks.data_ptr(), counts.data_ptr(), n, r,
-                                _stream(dev))
-        _check_rc(lib, rc, "diff")
-        LAUNCHES["diff"] += 1
+    if r and n:
+        launch("mkv_divergence", dev, digests.data_ptr(), digests.stride(0), present.data_ptr(),
+               present.stride(0), masks.data_ptr(), counts.data_ptr(), n, r)
     return masks, counts

@@ -7,11 +7,15 @@ path rehash, promotion chain and restructure) routes through these
 functions, and so does the N-replica diff (``divergence``), which the JAX
 package left to XLA's fusion.
 
-Policy: the tensor's device decides, and nothing else. A CUDA tensor goes to
-the kernel (or the wrapper raises); a CPU tensor goes to the plain version.
-There is no environment switch that picks the plain version on the card and
-no size cutoff: the JAX package's interpreter cutoffs existed because
-interpreted Pallas is slow on the CPU, and the CPU here runs plain PyTorch.
+Policy: the tensor's device decides, and nothing else. The functions here
+only forward: each wrapper (``ops/sha256_cuda.py``, ``ops/merkle_paths.py``,
+``ops/diff_cuda.py``) looks at its tensors' device and sends a CUDA tensor
+to the kernel through ``ops/cuda_lib.py`` (or raises) and a CPU tensor to
+the plain version. ``build_levels`` is the one function that builds a whole
+tree, a level-kernel launch per level. There is no environment switch that
+picks the plain version on the card and no size cutoff: the JAX package's
+interpreter cutoffs existed because interpreted Pallas is slow on the CPU,
+and the CPU here runs plain PyTorch.
 """
 
 from __future__ import annotations
@@ -26,7 +30,6 @@ from merklekv_tpu_torch.ops.merkle_paths import (
     promotion_chain_cuda,
 )
 from merklekv_tpu_torch.ops.sha256_cuda import (
-    build_levels_cuda,
     leaf_digests_cuda,
     node_level_cuda,
     node_pairs_cuda,
@@ -61,8 +64,19 @@ def hash_node_level(cur: torch.Tensor) -> torch.Tensor:
 
 
 def build_levels(leaves: torch.Tensor) -> list[torch.Tensor]:
-    """All tree levels bottom-up, odd promotion intact."""
-    return build_levels_cuda(leaves)
+    """All tree levels bottom-up from [N, 8] leaf digests, odd promotion
+    intact (counterpart of ``build_levels_pallas``): one level-kernel launch
+    per level on a CUDA tensor, however narrow, the plain version on a CPU
+    tensor. On a padded power-of-two capacity no level is odd."""
+    levels = [leaves]
+    cur = leaves
+    while cur.shape[0] > 1:
+        nxt = node_level_cuda(cur)
+        if cur.shape[0] % 2:
+            nxt = torch.cat([nxt, cur[-1:]], dim=0)
+        levels.append(nxt)
+        cur = nxt
+    return levels
 
 
 def rehash_paths(levels: list[torch.Tensor], scratch: torch.Tensor,

@@ -9,18 +9,10 @@ walk to the odd-promotion reference root). Both ran ``_node_kernel``
 is one hand-written kernel in ``csrc/merkle_paths.cu``, whose note says what
 bounds it and what its design does about that.
 
-Wrappers (``path_rehash_cuda``, ``promotion_chain_cuda``), as in
-``ops/sha256_cuda.py``:
-- tensors on the CPU run the plain version below; that is the only case
-  that does;
-- CUDA tensors are checked and the kernel is launched under
-  ``torch.cuda.device`` of the levels, on that device's current stream (so
-  from any thread), or the wrapper raises (a failed build or a refused
-  launch is an error, never a fallback);
-- ``LAUNCHES["path_rehash"]`` / ``LAUNCHES["promotion_chain"]`` count the
-  launches, incremented at the launch and nowhere else; ``PATH_KS[k]``
-  counts the path-rehash launches of k positions, beside it (never reset:
-  a reader takes the difference of two copies).
+The wrappers (``path_rehash_cuda``, ``promotion_chain_cuda``) keep the
+contract of ``ops/cuda_lib.py``; ``PATH_KS[k]`` counts the path-rehash
+launches of k positions beside ``LAUNCHES["path_rehash"]`` (never reset: a
+reader takes the difference of two copies).
 
 The path-rehash kernel cuts a batch into chunks of about ``PATH_WIDTH``
 sorted positions, one thread block each, and finishes the tree from the
@@ -35,21 +27,13 @@ int32 words, ``C`` a power of two; ``levels[-1]`` is the ``[1, 8]`` root.
 from __future__ import annotations
 
 import collections
-import ctypes
 
 import numpy as np
 import torch
 
 from merklekv_tpu_torch.merkle.cpu import ref_level_sizes
+from merklekv_tpu_torch.ops.cuda_lib import PATH_GROUP, MkvLevels, check_cuda, is_cpu, launch
 from merklekv_tpu_torch.ops.sha256 import sha256_blocks, sha256_node_pairs
-from merklekv_tpu_torch.ops.sha256_cuda import (
-    LAUNCHES,
-    _check_cuda,
-    _check_rc,
-    _is_cpu,
-    _stream,
-    build_kernels,
-)
 
 __all__ = [
     "PATH_WIDTH",
@@ -126,32 +110,6 @@ def promotion_chain(levels: list[torch.Tensor], n: int) -> torch.Tensor:
 
 # ------------------------------------------------------------ CUDA wrappers
 
-class MkvLevels(ctypes.Structure):
-    """``struct MkvLevels`` of ``csrc/merkle_paths.cuh``: every level's row
-    pointer plus the depth, handed to a kernel by value."""
-
-    MAX_LEVELS = 64
-    _fields_ = [("rows", ctypes.c_void_p * MAX_LEVELS), ("depth", ctypes.c_int32)]
-
-
-def _lib() -> ctypes.CDLL:
-    """The kernel library (``ops/sha256_cuda.py`` builds it) with the two
-    entry points of ``csrc/merkle_paths.cu`` bound."""
-    lib = build_kernels().lib
-    p, i64, i32, levels = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.POINTER(MkvLevels)
-    lib.mkv_path_rehash.argtypes = [levels, p, p, p, i32, i32, i32, i32, p, p]
-    lib.mkv_promotion_chain.argtypes = [levels, i64, i32, p, p]
-    lib.mkv_hash_chain.argtypes = [p, i32, i32, p, p, p]
-    lib.mkv_path_group.argtypes = []
-    for fn in (lib.mkv_path_rehash, lib.mkv_promotion_chain, lib.mkv_hash_chain,
-               lib.mkv_path_group):
-        fn.restype = ctypes.c_int
-    if lib.mkv_path_group() != _PATH_GROUP:
-        raise RuntimeError(f"the kernel's arrival groups have {lib.mkv_path_group()} blocks, "
-                           f"the scratch is sized for {_PATH_GROUP}")
-    return lib
-
-
 def _capacity(levels: list[torch.Tensor]) -> int:
     c = int(levels[0].shape[0]) if levels else 0
     if c < 2 or c & (c - 1) or len(levels) != c.bit_length():
@@ -165,7 +123,7 @@ def _levels_struct(levels: list[torch.Tensor], dev: torch.device) -> MkvLevels:
     c = int(levels[0].shape[0])
     st = MkvLevels()
     for lvl, t in enumerate(levels):
-        _check_cuda(t, f"levels[{lvl}]", 2, 8, dev)
+        check_cuda(t, f"levels[{lvl}]", 2, 8, dev)
         if t.shape[0] != c >> lvl:
             raise ValueError(f"levels[{lvl}] has {t.shape[0]} rows, expected {c >> lvl}")
         st.rows[lvl] = t.data_ptr()
@@ -173,15 +131,10 @@ def _levels_struct(levels: list[torch.Tensor], dev: torch.device) -> MkvLevels:
     return st
 
 
-# Blocks per arrival group of the kernel (csrc/merkle_paths.cuh, kMkvGroup;
-# _lib() checks the library's, tests/test_torch_csrc_core.py the header's).
-_PATH_GROUP = 128
-
-
 def _scratch_words(k: int) -> int:
     """The kernel's scratch for k positions: its counters, bitmap and cuts."""
     g = -(-k // PATH_WIDTH)
-    return 2 * g + 3 + -(-g // _PATH_GROUP)
+    return 2 * g + 3 + -(-g // PATH_GROUP)
 
 
 def path_scratch(capacity: int, device) -> torch.Tensor:
@@ -215,28 +168,23 @@ def path_rehash_cuda(levels: list[torch.Tensor], scratch: torch.Tensor,
         raise ValueError(f"positions [{pos[0]}, {pos[-1]}] outside capacity {c}")
     if blocks.shape[0] != k or nblocks.shape[0] != k:
         raise ValueError(f"{blocks.shape[0]} blocks, {nblocks.shape[0]} counts, {k} positions")
-    if _is_cpu(levels[0], blocks, nblocks):
+    if is_cpu(levels[0], blocks, nblocks):
         if k:
             path_rehash(levels, blocks, nblocks, pos)
         return
     dev = levels[0].device
     st = _levels_struct(levels, dev)
-    _check_cuda(blocks, "blocks", 3, 16, dev)
-    _check_cuda(nblocks, "nblocks", 1, None, dev)
-    _check_cuda(scratch, "scratch", 1, None, dev)
+    check_cuda(blocks, "blocks", 3, 16, dev)
+    check_cuda(nblocks, "nblocks", 1, None, dev)
+    check_cuda(scratch, "scratch", 1, None, dev)
     if scratch.shape[0] < _scratch_words(k):
         raise ValueError(f"scratch has {scratch.shape[0]} words, too few for {k} positions")
     if k == 0:
         return
     pos_t = torch.from_numpy(pos.astype(np.int32)).to(dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        rc = lib.mkv_path_rehash(st, blocks.data_ptr(), nblocks.data_ptr(), pos_t.data_ptr(),
-                                 k, blocks.shape[1], PATH_WIDTH, _path_top(c),
-                                 scratch.data_ptr(), _stream(dev))
-        _check_rc(lib, rc, "path_rehash")
-        LAUNCHES["path_rehash"] += 1
-        PATH_KS[k] += 1
+    launch("mkv_path_rehash", dev, st, blocks.data_ptr(), nblocks.data_ptr(), pos_t.data_ptr(),
+           k, blocks.shape[1], PATH_WIDTH, _path_top(c), scratch.data_ptr())
+    PATH_KS[k] += 1
 
 
 def promotion_chain_cuda(levels: list[torch.Tensor], n: int) -> torch.Tensor:
@@ -245,38 +193,30 @@ def promotion_chain_cuda(levels: list[torch.Tensor], n: int) -> torch.Tensor:
     c = _capacity(levels)
     if not 1 <= n <= c:
         raise ValueError(f"live count {n} outside [1, {c}]")
-    if _is_cpu(levels[0]):
+    if is_cpu(levels[0]):
         return promotion_chain(levels, n)
     dev = levels[0].device
     st = _levels_struct(levels, dev)
     nlev = len(ref_level_sizes(n))
     out = torch.empty((nlev, 8), dtype=torch.int32, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        rc = lib.mkv_promotion_chain(st, n, nlev, out.data_ptr(), _stream(dev))
-        _check_rc(lib, rc, "promotion_chain")
-        LAUNCHES["promotion_chain"] += 1
+    launch("mkv_promotion_chain", dev, st, n, nlev, out.data_ptr())
     return out
 
 
 def hash_chain_cuda(inp: torch.Tensor, d: int, nblk: int = 0) -> tuple[torch.Tensor, int, int]:
-    """Measurement only, never on a serving path and not counted in
-    ``LAUNCHES``: one warp hashes a leaf of nblk blocks and then a dependent
-    chain of d node hashes in registers (``hash_chain_kernel``, the
-    unrolled node hash). Takes [32, 16] int32 rows (x, y) on a CUDA device;
-    returns the [32, 8] results (== ``hash_chain``), the SM clock cycles and
-    the nanoseconds of the chain. Synchronises."""
+    """Measurement only, never on a serving path: one warp hashes a leaf of
+    nblk blocks and then a dependent chain of d node hashes in registers
+    (``hash_chain_kernel``, the unrolled node hash). Takes [32, 16] int32
+    rows (x, y) on a CUDA device; returns the [32, 8] results
+    (== ``hash_chain``), the SM clock cycles and the nanoseconds of the
+    chain. Synchronises."""
     dev = inp.device
-    _check_cuda(inp, "inp", 2, 16, dev)
+    check_cuda(inp, "inp", 2, 16, dev)
     if inp.shape[0] != 32 or d < 0 or nblk < 0:
         raise ValueError(f"expected [32, 16] rows, d >= 0 and nblk >= 0, got "
                          f"{tuple(inp.shape)}, d={d}, nblk={nblk}")
     out = torch.empty((32, 8), dtype=torch.int32, device=dev)
     timing = torch.zeros(2, dtype=torch.int64, device=dev)
-    lib = _lib()
-    with torch.cuda.device(dev):
-        rc = lib.mkv_hash_chain(inp.data_ptr(), nblk, d, out.data_ptr(), timing.data_ptr(),
-                                _stream(dev))
-        _check_rc(lib, rc, "hash_chain")
+    launch("mkv_hash_chain", dev, inp.data_ptr(), nblk, d, out.data_ptr(), timing.data_ptr())
     cycles, ns = timing.tolist()
     return out, int(cycles), int(ns)

@@ -1,6 +1,4 @@
-"""The key mesh's copy-engine copies: the binding and wrapper of
-``csrc/mesh_copy.cu`` (built into the kernel library by
-``ops/sha256_cuda.py``).
+"""The key mesh's copy-engine copies: the wrappers of ``csrc/mesh_copy.cu``.
 
 - ``copy_columns(dst, col, src, stream)`` writes a CUDA ``[R, L]`` tensor
   into columns ``col .. col + L`` of a CUDA ``[R, N]`` tensor of the same
@@ -14,41 +12,22 @@
 
 There is no plain version: the wrappers take CUDA tensors only, and
 ``parallel/sharded_merkle.py`` copies with ``Tensor.copy_`` wherever the
-copy engines do not serve. A failed build or a refused copy raises.
-``COPIES["2d"]`` counts the copies, bumped at the call and nowhere else.
+copy engines do not serve. Otherwise they keep the contract of
+``ops/cuda_lib.py``: ``LAUNCHES["copy_2d"]`` counts the copies.
 """
 
 from __future__ import annotations
 
-import ctypes
 import threading
 
 import torch
 
-from merklekv_tpu_torch.ops.sha256_cuda import build_kernels
+from merklekv_tpu_torch.ops.cuda_lib import launch
 
-__all__ = ["COPIES", "enable_peer_access", "copy_columns"]
+__all__ = ["enable_peer_access", "copy_columns"]
 
-COPIES = {"2d": 0}
 _peers: set = set()
 _peers_lock = threading.Lock()
-
-
-def _lib() -> ctypes.CDLL:
-    """The kernel library with ``mkv_enable_peer_access`` and
-    ``mkv_copy_2d`` bound."""
-    lib = build_kernels().lib
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-    lib.mkv_enable_peer_access.argtypes = [i32, i32]
-    lib.mkv_copy_2d.argtypes = [p, i64, p, i64, i64, i64, p]
-    for fn in (lib.mkv_enable_peer_access, lib.mkv_copy_2d):
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def _check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what} failed: {lib.mkv_error_string(rc).decode()} ({rc})")
 
 
 def enable_peer_access(device: int, peer: int) -> None:
@@ -57,9 +36,7 @@ def enable_peer_access(device: int, peer: int) -> None:
     with _peers_lock:
         if (device, peer) in _peers:
             return
-        lib = _lib()
-        _check(lib, lib.mkv_enable_peer_access(device, peer),
-               f"cudaDeviceEnablePeerAccess from card {device} to card {peer}")
+        launch("mkv_enable_peer_access", torch.device("cuda", device), device, peer)
         _peers.add((device, peer))
 
 
@@ -82,10 +59,6 @@ def copy_columns(dst: torch.Tensor, col: int, src: torch.Tensor,
     width = src.shape[1] * size
     if rows == 0 or width == 0:
         return
-    lib = _lib()
-    with torch.cuda.device(stream.device):
-        rc = lib.mkv_copy_2d(dst.data_ptr() + col * size, max(dst.stride(0) * size, width),
-                             src.data_ptr(), max(src.stride(0) * size, width), width, rows,
-                             stream.cuda_stream)
-        _check(lib, rc, "cudaMemcpy2DAsync")
-        COPIES["2d"] += 1
+    launch("mkv_copy_2d", stream.device, dst.data_ptr() + col * size,
+           max(dst.stride(0) * size, width), src.data_ptr(), max(src.stride(0) * size, width),
+           width, rows, stream=stream)

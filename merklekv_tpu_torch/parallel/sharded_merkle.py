@@ -69,8 +69,7 @@ import numpy as np
 import torch
 
 from merklekv_tpu_torch.merkle.cpu import ref_level_sizes
-from merklekv_tpu_torch.merkle.diff import divergence_vs_ref
-from merklekv_tpu_torch.merkle.incremental import _reduce_levels
+from merklekv_tpu_torch.ops.diff_cuda import divergence_vs_ref
 from merklekv_tpu_torch.ops.dispatch import (
     build_levels,
     divergence,
@@ -575,7 +574,7 @@ def sharded_anti_entropy_step(
 
 def _top_levels(shard_levels: Sequence[list], dev: torch.device) -> list[torch.Tensor]:
     """The top tree over the shard roots, on ``dev``: sizes D .. 1."""
-    return _reduce_levels(_gather([lv[-1] for lv in shard_levels], dev))
+    return build_levels(_gather([lv[-1] for lv in shard_levels], dev))
 
 
 def _hash_into(leaves: Sequence[torch.Tensor], pos: np.ndarray, blocks: np.ndarray,
@@ -601,7 +600,7 @@ def sharded_build(devices: Sequence[torch.device], capacity: int, blocks: np.nda
     l = _check_shardable(capacity, len(devices), "capacity")
     leaves = [torch.zeros((l, 8), dtype=torch.int32, device=dev) for dev in devices]
     _hash_into(leaves, np.arange(len(nblocks)), blocks, nblocks)
-    shards = [_reduce_levels(lv) for lv in leaves]
+    shards = [build_levels(lv) for lv in leaves]
     return shards, _top_levels(shards, devices[0])
 
 
@@ -630,7 +629,7 @@ def sharded_scatter(shard_levels: list, top: list, counters: list, blocks: np.nd
                 counters[s] = path_scratch(l, dev)
             rehash_paths(lv, counters[s], blk, nb, pos[a:b] - s * l)
         top[0][s : s + 1].copy_(lv[-1])
-    return _reduce_levels(top[0])
+    return build_levels(top[0])
 
 
 def sharded_restructure(old_leaves: Sequence[torch.Tensor], devices: Sequence[torch.device],
@@ -663,7 +662,7 @@ def sharded_restructure(old_leaves: Sequence[torch.Tensor], devices: Sequence[to
             base[as_tensor(dst[a:b], dev, torch.int64)] = vals.to(dev)
         new_leaves.append(base)
     _hash_into(new_leaves, fresh_pos, blocks, nblocks)
-    shards = [_reduce_levels(lv) for lv in new_leaves]
+    shards = [build_levels(lv) for lv in new_leaves]
     return shards, _top_levels(shards, devices[0])
 
 

@@ -511,9 +511,9 @@ def test_path_walk_every_subset_of_small_trees(core, depth):
 
 def test_path_group_matches_the_wrappers_scratch_sizing(tmp_path):
     """``ops/merkle_paths.py`` sizes the kernel's scratch with one counter per
-    arrival group of ``_PATH_GROUP`` blocks: it must be the header's
+    arrival group of ``cuda_lib.PATH_GROUP`` blocks: it must be the header's
     ``kMkvGroup`` as the card builds it (no ``MKV_PATH_GROUP`` given)."""
-    from merklekv_tpu_torch.ops import merkle_paths as mp
+    from merklekv_tpu_torch.ops import cuda_lib
 
     cxx = shutil.which("g++") or shutil.which("c++")
     if cxx is None:
@@ -524,7 +524,7 @@ def test_path_group_matches_the_wrappers_scratch_sizing(tmp_path):
     subprocess.run([cxx, "-std=c++17", f"-I{CSRC}", str(src), "-o", str(exe)],
                    check=True, capture_output=True)
     out = subprocess.run([str(exe)], check=True, capture_output=True, text=True).stdout
-    assert int(out) == mp._PATH_GROUP
+    assert int(out) == cuda_lib.PATH_GROUP
 
 
 @pytest.mark.parametrize("n", [1, 2, 3, 33, PATH_C - 1, PATH_C])

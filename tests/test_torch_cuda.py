@@ -20,8 +20,10 @@ from merklekv_tpu_torch.device.guard import DispatchGuard
 from merklekv_tpu_torch.merkle import diff as tdiff
 from merklekv_tpu_torch.merkle import torch_engine as te
 from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
-from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState, _reduce_levels
+from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState
+from merklekv_tpu_torch.ops import cuda_lib as cl
 from merklekv_tpu_torch.ops import diff_cuda as dc
+from merklekv_tpu_torch.ops import dispatch
 from merklekv_tpu_torch.ops import merkle_paths as mp
 from merklekv_tpu_torch.ops import sha256 as plain
 from merklekv_tpu_torch.ops import sha256_cuda as sc
@@ -35,6 +37,11 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     return torch.device("cuda", 0)
+
+
+def _launches(**counts):
+    """Every key of ``LAUNCHES`` at 0 but the ``counts`` given."""
+    return {**dict.fromkeys(cl.LAUNCHES, 0), **counts}
 
 
 def _words(seed, shape, device):
@@ -65,9 +72,9 @@ def test_node_pairs_kernel_at_shape_edges(dev, p):
     if isinstance(p, tuple):
         p = 4 * 32 * torch.cuda.get_device_properties(dev).multi_processor_count + p[1]
     left, right = _words(p, (p, 8), dev), _words(p + 1, (p, 8), dev)
-    before = sc.LAUNCHES["node_pairs"]
+    before = cl.LAUNCHES["node_pairs"]
     got = sc.node_pairs_cuda(left, right)
-    assert sc.LAUNCHES["node_pairs"] == before + 1
+    assert cl.LAUNCHES["node_pairs"] == before + 1
     assert torch.equal(got, plain.sha256_node_pairs(left, right))
     rows = [(left[i], right[i]) for i in (0, p // 2, p - 1)]
     want = [hashlib.sha256(b"".join(r.cpu().numpy().view(np.uint32).astype(">u4").tobytes()
@@ -87,20 +94,19 @@ def test_node_kernels_match_hashlib(dev):
 
 
 def test_launch_counts_and_empty_inputs(dev):
-    sc.reset_launch_counts()
+    cl.reset_launch_counts()
     e8 = torch.empty((0, 8), dtype=torch.int32, device=dev)
     assert sc.leaf_digests_cuda(torch.empty((0, 1, 16), dtype=torch.int32, device=dev),
                                 torch.empty(0, dtype=torch.int32, device=dev)).shape == (0, 8)
     one_row = torch.zeros((1, 8), dtype=torch.int32, device=dev)
     assert sc.node_level_cuda(one_row).shape == (0, 8)
     assert sc.node_pairs_cuda(e8, e8).shape == (0, 8)
-    assert set(sc.LAUNCHES.values()) == {0}
+    assert set(cl.LAUNCHES.values()) == {0}
     x = _words(1, (4, 8), dev)
     sc.node_level_cuda(x)
     sc.node_pairs_cuda(x, x)
     sc.leaf_digests_cuda(_words(2, (4, 1, 16), dev), torch.ones(4, dtype=torch.int32, device=dev))
-    assert sc.LAUNCHES == {"leaf": 1, "node_level": 1, "node_pairs": 1,
-                           "path_rehash": 0, "promotion_chain": 0, "diff": 0}
+    assert cl.LAUNCHES == _launches(leaf=1, node_level=1, node_pairs=1)
 
 
 def test_wrappers_reject_bad_tensors(dev):
@@ -170,14 +176,13 @@ def test_sharded_state_on_card_matches_single_device(dev, n):
         if round_ == 2:
             batch += [(b"sh%05d-x" % i, b"new") for i in range(0, n, 7)]
             batch += [(b"sh%05d" % i, None) for i in range(1, n, 11)]
-        before = dict(sc.LAUNCHES)
+        before = dict(cl.LAUNCHES)
         card.apply(batch)
         card.flush_pending()
-        delta = {name: sc.LAUNCHES[name] - before[name] for name in before}
+        delta = {name: cl.LAUNCHES[name] - before[name] for name in before}
         if round_ != 2 and card._capacity >= 8:
             owners = len(set(card._positions(keys) // (card._capacity // 4)))
-            assert delta == {"leaf": 0, "node_level": 2, "node_pairs": 0,
-                             "path_rehash": owners, "promotion_chain": 0, "diff": 0}
+            assert delta == _launches(node_level=2, path_rehash=owners)
         one.apply(batch)
         assert card.root_hex() == one.root_hex()
         for level, m in enumerate(card.ref_level_sizes(card.leaf_count())):
@@ -219,9 +224,9 @@ def _rehash_both(dev, levels, pos, rng):
     blocks = _words(int(rng.randint(1 << 30)), (k, 2, 16), dev)
     nblocks = torch.from_numpy(rng.randint(0, 3, size=k).astype(np.int32)).to(dev)
     scratch = mp.path_scratch(levels[0].shape[0], dev)
-    before = sc.LAUNCHES["path_rehash"]
+    before = cl.LAUNCHES["path_rehash"]
     mp.path_rehash_cuda(levels, scratch, blocks, nblocks, pos)
-    assert sc.LAUNCHES["path_rehash"] == before + 1
+    assert cl.LAUNCHES["path_rehash"] == before + 1
     mp.path_rehash(ref, blocks, nblocks, pos)
     for lvl, (got, want) in enumerate(zip(levels, ref)):
         assert torch.equal(got, want), (list(pos)[:8], lvl)
@@ -277,7 +282,7 @@ def test_path_rehash_kernel_matches_plain(dev, case, shape, monkeypatch):
     monkeypatch.setattr(mp, "PATH_TOP_NODES", shape[1])
     rng = np.random.RandomState(sorted(PATH_CASES).index(case) if case in PATH_CASES else 99)
     if case in PATH_CASES:
-        levels = _reduce_levels(_words(1, (PATH_C, 8), dev))
+        levels = dispatch.build_levels(_words(1, (PATH_C, 8), dev))
         _rehash_both(dev, levels, np.asarray(PATH_CASES[case](rng), np.int64), rng)
         return
     c = 1 << int(case.rsplit("_", 1)[1])
@@ -287,11 +292,11 @@ def test_path_rehash_kernel_matches_plain(dev, case, shape, monkeypatch):
 
 
 def test_promotion_chain_kernel_matches_plain(dev):
-    levels = _reduce_levels(_words(3, (PATH_C, 8), dev))
+    levels = dispatch.build_levels(_words(3, (PATH_C, 8), dev))
     for n in (1, 2, 3, PATH_C // 2 + 1, 3000, PATH_C):
-        before = sc.LAUNCHES["promotion_chain"]
+        before = cl.LAUNCHES["promotion_chain"]
         got = mp.promotion_chain_cuda(levels, n)
-        assert sc.LAUNCHES["promotion_chain"] == before + 1
+        assert cl.LAUNCHES["promotion_chain"] == before + 1
         assert torch.equal(got, mp.promotion_chain(levels, n)), n
 
 
@@ -308,16 +313,15 @@ def test_value_batch_is_one_fused_launch(dev):
     card = DeviceMerkleState.from_items(items.items())
     cpu = DeviceMerkleState.from_items(items.items(), device="cpu")
     batch = [(b"sk%04d" % i, b"w%d" % i) for i in (0, 1, 7, 150, 299)]
-    before, ks = dict(sc.LAUNCHES), mp.PATH_KS.copy()
+    before, ks = dict(cl.LAUNCHES), mp.PATH_KS.copy()
     card.apply(batch)
     card.flush_pending()
-    delta = {name: sc.LAUNCHES[name] - before[name] for name in before}
-    assert delta == {"leaf": 0, "node_level": 0, "node_pairs": 0,
-                     "path_rehash": 1, "promotion_chain": 0, "diff": 0}
+    delta = {name: cl.LAUNCHES[name] - before[name] for name in before}
+    assert delta == _launches(path_rehash=1)
     assert mp.PATH_KS - ks == {len(batch): 1}
     cpu.apply(batch)
     assert card.root_hex() == cpu.root_hex()
-    assert sc.LAUNCHES["promotion_chain"] == before["promotion_chain"] + 1
+    assert cl.LAUNCHES["promotion_chain"] == before["promotion_chain"] + 1
 
 
 @pytest.mark.parametrize("via", ["thread", "guard"])
@@ -329,7 +333,7 @@ def test_launches_from_a_fresh_thread_match_plain(dev, via):
     card = DeviceMerkleState.from_items(items.items())
     cpu = DeviceMerkleState.from_items(items.items(), device="cpu")
     batch = [(b"tk%04d" % i, b"w%d" % i) for i in range(0, 1000, 7)]
-    before = dict(sc.LAUNCHES)
+    before = dict(cl.LAUNCHES)
     out, names = {}, []
 
     def body():
@@ -346,8 +350,8 @@ def test_launches_from_a_fresh_thread_match_plain(dev, via):
     else:
         DispatchGuard(deadline_ms=60_000).run("scatter", body)
     assert names and names[0] != threading.main_thread().name
-    assert sc.LAUNCHES["path_rehash"] == before["path_rehash"] + 1
-    assert sc.LAUNCHES["promotion_chain"] == before["promotion_chain"] + 1
+    assert cl.LAUNCHES["path_rehash"] == before["path_rehash"] + 1
+    assert cl.LAUNCHES["promotion_chain"] == before["promotion_chain"] + 1
     cpu.apply(batch)
     assert out["root"] == cpu.root_hex()
     for a, b in zip(card.to_numpy_levels(), cpu.to_numpy_levels()):
@@ -400,15 +404,15 @@ def test_node_serves_the_golden_root_from_the_card(dev, monkeypatch):
         c = _client(run)
         items = {b"n%05d" % i: b"v%d" % i for i in range(5000)}
         c.mset({k.decode(): v.decode() for k, v in items.items()})
-        sc.reset_launch_counts()
+        cl.reset_launch_counts()
         assert _serves_from_mirror(c)
-        assert sc.LAUNCHES["leaf"] >= 1 and sc.LAUNCHES["node_level"] >= 1
+        assert cl.LAUNCHES["leaf"] >= 1 and cl.LAUNCHES["node_level"] >= 1
         golden = CpuMerkleState.from_items(items.items())
         assert c.hash(force=True) == golden.root_hex()
         c.set("n00007", "changed")
         golden.apply([(b"n00007", b"changed")])
         assert c.hash(force=True) == golden.root_hex()
-        assert sc.LAUNCHES["path_rehash"] >= 1 and sc.LAUNCHES["promotion_chain"] >= 1
+        assert cl.LAUNCHES["path_rehash"] >= 1 and cl.LAUNCHES["promotion_chain"] >= 1
         rows, n = c.tree_level(1, 0, 4)
         assert n == 5000 and [(i, bytes.fromhex(h)) for i, h in rows] == golden.level_nodes(1, 0, 4)[0]
         c.close()
@@ -424,9 +428,9 @@ def test_node_sync_runs_its_leaf_pass_on_the_card(dev, monkeypatch):
         ca.mset({f"s{i:05d}": f"v{i}" for i in range(3000)})
         cb.mset({f"s{i:05d}": f"w{i}" for i in range(0, 3000, 5)})
         fallbacks = int(cb.metrics().get("device.fallbacks", 0))  # the process's registry
-        sc.reset_launch_counts()
+        cl.reset_launch_counts()
         assert cb.sync_with("127.0.0.1", a.port)
-        assert sc.LAUNCHES["leaf"] >= 1
+        assert cl.LAUNCHES["leaf"] >= 1
         assert b.engine.snapshot() == a.engine.snapshot()
         assert cb.hash(force=True) == ca.hash(force=True)
         assert int(cb.metrics().get("device.fallbacks", 0)) == fallbacks
@@ -444,9 +448,9 @@ def test_snapshot_root_runs_the_kernels_on_the_card(dev, monkeypatch):
 
     monkeypatch.setenv("MERKLEKV_TORCH_DEVICE", "cuda")
     items = [(b"inc:%09d" % i, b"v%d" % i) for i in range(5000)]
-    sc.reset_launch_counts()
+    cl.reset_launch_counts()
     got = snapmod.compute_root_hex(items, engine="auto")
-    assert sc.LAUNCHES["leaf"] == 1 and sc.LAUNCHES["node_level"] >= 1
+    assert cl.LAUNCHES["leaf"] == 1 and cl.LAUNCHES["node_level"] >= 1
     assert got == snapmod.compute_root_hex(items, engine="cpu")
 
 
@@ -595,10 +599,10 @@ def test_diff_kernel_matches_plain(dev, r, n):
     if isinstance(n, tuple):
         n = 8192 * torch.cuda.get_device_properties(dev).multi_processor_count + n[1]
     dig, pres = _replicas(7 * r + n, r, n)
-    before = sc.LAUNCHES["diff"]
+    before = cl.LAUNCHES["diff"]
     masks, counts = dc.divergence_cuda(torch.from_numpy(dig.view(np.int32)).to(dev),
                                        torch.from_numpy(pres).to(dev))
-    assert sc.LAUNCHES["diff"] == before + 1
+    assert cl.LAUNCHES["diff"] == before + 1
     assert masks.device == dev and counts.dtype == torch.int32
     _check_diff(dig, pres, masks, counts)
 
@@ -637,12 +641,12 @@ def test_diff_kernel_finds_one_word_in_each_position(dev):
 
 
 def test_diff_empty_inputs_launch_nothing(dev):
-    before = sc.LAUNCHES["diff"]
+    before = cl.LAUNCHES["diff"]
     for r, n in ((3, 0), (0, 5)):
         masks, counts = dc.divergence_cuda(torch.zeros((r, n, 8), dtype=torch.int32, device=dev),
                                            torch.zeros((r, n), dtype=torch.bool, device=dev))
         assert masks.shape == (r, n) and counts.tolist() == [0] * r
-    assert sc.LAUNCHES["diff"] == before
+    assert cl.LAUNCHES["diff"] == before
 
 
 def test_diff_wrapper_rejects_bad_tensors(dev):
@@ -666,11 +670,11 @@ def test_anti_entropy_forward_launches_the_diff_once_a_cycle(dev):
     nblocks = torch.full((n,), 2, dtype=torch.int32, device=dev)
     dig, pres = _replicas(32, r, n)
     digests, present = torch.from_numpy(dig.view(np.int32)).to(dev), torch.from_numpy(pres).to(dev)
-    before = sc.LAUNCHES["diff"]
+    before = cl.LAUNCHES["diff"]
     for cycle in range(3):
         _root, masks, counts = te.anti_entropy_forward(blocks, nblocks, digests, present,
                                                        device=dev)
-        assert sc.LAUNCHES["diff"] == before + cycle + 1
+        assert cl.LAUNCHES["diff"] == before + cycle + 1
     _check_diff(dig, pres, masks, counts)
 
 
@@ -680,10 +684,10 @@ def test_sharded_diff_reads_each_shards_slice(dev):
 
     dig, pres = _replicas(41, 3, 4 * 1027)
     mesh = make_mesh({"key": 4}, devices=[dev] * 4)
-    before = sc.LAUNCHES["diff"]
+    before = cl.LAUNCHES["diff"]
     masks, counts = sharded_merkle.sharded_divergence(
         mesh, torch.from_numpy(dig.view(np.int32)).to(dev), torch.from_numpy(pres).to(dev))
-    assert sc.LAUNCHES["diff"] == before + 4
+    assert cl.LAUNCHES["diff"] == before + 4
     _check_diff(dig, pres, masks, counts)
 
 
@@ -710,7 +714,6 @@ def test_mesh_steps_back_to_back_without_a_host_sync(dev, layout, monkeypatch):
     the first card's wait for them a step's masks are copied out before
     they are whole; without a source card's wait the next step's diff
     writes its masks where a copy has yet to read."""
-    from merklekv_tpu_torch.ops import mesh_copy
     from merklekv_tpu_torch.parallel import sharded_merkle
     from merklekv_tpu_torch.parallel.mesh import make_mesh
 
@@ -754,7 +757,7 @@ def test_mesh_steps_back_to_back_without_a_host_sync(dev, layout, monkeypatch):
         torch.cuda.synchronize(x)
     step = sharded_merkle.make_anti_entropy_step(make_mesh({"key": d}, devices=devs))
     engines = sharded_merkle._copy_engines(devs)
-    before = mesh_copy.COPIES["2d"]
+    before = cl.LAUNCHES["copy_2d"]
     got = []
     for k in range(3):
         for s in range(d):
@@ -765,7 +768,7 @@ def test_mesh_steps_back_to_back_without_a_host_sync(dev, layout, monkeypatch):
         got.append((root.clone(), masks.clone(), counts.clone()))
     for x in set(devs):
         torch.cuda.synchronize(x)
-    assert mesh_copy.COPIES["2d"] - before == (3 * d if engines else 0)
+    assert cl.LAUNCHES["copy_2d"] - before == (3 * d if engines else 0)
     for k, (g, w) in enumerate(zip(got, want)):
         assert torch.equal(g[0], w[0]), f"step {k}: root"
         assert torch.equal(g[2], w[2]), f"step {k}: counts"

@@ -15,7 +15,7 @@ absent from the reference only, the replica only and both, and key-axis
 slices of larger arrays (replica strides other than N).
 
 On CPU tensors ``ops.dispatch.divergence`` is the plain version:
-``merkle.diff.divergence_vs_ref`` and the int32 row sum, with no launch
+``ops.diff_cuda.divergence_vs_ref`` and the int32 row sum, with no launch
 counted. The kernel itself runs only on the card
 (``tests/test_torch_cuda.py``).
 """
@@ -33,7 +33,7 @@ from merklekv_tpu.merkle import diff as jax_diff
 from merklekv_tpu_torch.merkle import diff as t_diff
 from merklekv_tpu_torch.merkle import torch_engine as te
 from merklekv_tpu_torch.ops import dispatch
-from merklekv_tpu_torch.ops import sha256_cuda as sc
+from merklekv_tpu_torch.ops import cuda_lib
 
 CSRC = Path(__file__).resolve().parents[1] / "merklekv_tpu_torch" / "csrc"
 REPLICAS = (1, 2, 3, 8)
@@ -241,21 +241,21 @@ def test_host_launch_finds_one_word_in_each_position(tile_lib):
 def test_cpu_divergence_is_the_plain_predicate(r, n):
     dig, pres = replicas(7 * r + n, r, n)
     d, p = torch.from_numpy(dig.view(np.int32)), torch.from_numpy(pres)
-    sc.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     masks, counts = dispatch.divergence(d, p)
     want = t_diff.divergence_vs_ref(d, p, d[0:1], p[0:1])
     assert torch.equal(masks, want)
     assert counts.dtype == torch.int32 and torch.equal(counts, want.sum(dim=1, dtype=torch.int32))
     assert torch.equal(t_diff.divergence_masks(d, p), want)
     np.testing.assert_array_equal(masks.numpy(), jax_diff.divergence_masks_np(dig, pres))
-    assert sc.LAUNCHES["diff"] == 0
+    assert cuda_lib.LAUNCHES["diff"] == 0
 
 
 def test_cpu_divergence_builds_and_launches_nothing(monkeypatch):
     def refuse():
         raise AssertionError("a CPU tensor reached the kernel library")
 
-    monkeypatch.setattr(sc, "build_kernels", refuse)
+    monkeypatch.setattr(cuda_lib, "build_kernels", refuse)
     dig, pres = one_word_cases()
     masks, counts = dispatch.divergence(torch.from_numpy(dig.view(np.int32)),
                                         torch.from_numpy(pres))

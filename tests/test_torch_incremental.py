@@ -31,6 +31,7 @@ from merklekv_tpu_torch.merkle.cpu import build_levels as golden_levels
 from merklekv_tpu_torch.merkle.cpu import ref_level_sizes
 from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
 from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState
+from merklekv_tpu_torch.ops import dispatch
 from merklekv_tpu_torch.ops import merkle_paths as mp
 from merklekv_tpu_torch.ops.sha256 import digests_to_bytes
 
@@ -209,7 +210,7 @@ def _rand_u32(rng, shape) -> np.ndarray:
 
 def _padded_levels(leaves: np.ndarray) -> list:
     """Every padded level of [C, 8] uint32 leaves, as CPU int32 tensors."""
-    return t_inc._reduce_levels(torch.from_numpy(leaves.view(np.int32)))
+    return dispatch.build_levels(torch.from_numpy(leaves.view(np.int32)))
 
 
 PATH_CASES = {

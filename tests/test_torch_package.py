@@ -22,6 +22,7 @@
 import ast
 import importlib
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -43,7 +44,7 @@ from merklekv_tpu_torch.device.ladder import build_state_for_rung
 from merklekv_tpu_torch.merkle import diff as t_diff
 from merklekv_tpu_torch.merkle import torch_engine as te
 from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState
-from merklekv_tpu_torch.ops import sha256_cuda
+from merklekv_tpu_torch.ops import cuda_lib, sha256_cuda
 from merklekv_tpu_torch.parallel import ShardedDeviceMerkleState, make_mesh, multihost
 from merklekv_tpu_torch.storage import compute_root_hex
 from merklekv_tpu_torch.storage import snapshot as snapmod
@@ -382,20 +383,78 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.delenv("CUDA_HOME", raising=False)
     monkeypatch.delenv("CUDA_PATH", raising=False)
-    monkeypatch.setattr(sha256_cuda, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_lib, "BUILD_DIR", tmp_path / "build")
     import torch.utils.cpp_extension as cpp_ext
 
     monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
     with pytest.raises(RuntimeError, match="nvcc"):
-        sha256_cuda.build_kernels()
-    assert sha256_cuda._kernels is None
+        cuda_lib.build_kernels()
+    assert cuda_lib._kernels is None
 
 
 def test_source_tag_covers_sources_and_flags():
-    tag = sha256_cuda._source_tag()
-    assert len(tag) == 16 and tag == sha256_cuda._source_tag()
-    assert sha256_cuda.BUILD_DIR == ROOT / "build" / "torch_kernels"
+    tag = cuda_lib._source_tag()
+    assert len(tag) == 16 and tag == cuda_lib._source_tag()
+    assert cuda_lib.BUILD_DIR == ROOT / "build" / "torch_kernels"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
+
+
+def test_source_tag_follows_every_csrc_file(tmp_path, monkeypatch):
+    """The kernel library's name hashes every ``.cu`` and ``.cuh`` found in
+    ``csrc/``, listed nowhere: a header added to a copy renames it."""
+    tag = cuda_lib._source_tag()
+    copy = tmp_path / "csrc"
+    shutil.copytree(PKG / "csrc", copy)
+    monkeypatch.setattr(cuda_lib, "_CSRC", copy)
+    assert cuda_lib._source_tag() == tag
+    (copy / "extra.cuh").write_text("#pragma once\n")
+    assert cuda_lib._source_tag() != tag
+
+
+_C_ENTRY = re.compile(r"^(?:int|const char\*) (mkv_\w+)\(([^)]*)\)", re.M)
+
+
+def test_binding_table_is_the_csrc_entries():
+    """``cuda_lib.ENTRIES`` binds exactly the ``mkv_*`` functions of the
+    ``extern "C"`` blocks of ``csrc/*.cu``, each with its C parameters (a
+    launch's last one its stream), and no module of ``ops/`` calls an entry
+    outside it or binds one itself."""
+    defined = {}
+    for cu in sorted((PKG / "csrc").glob("*.cu")):
+        for block in re.findall(r'extern "C" \{(.*?)\}  // extern "C"', cu.read_text(), re.S):
+            for name, params in _C_ENTRY.findall(block):
+                defined[name] = [" ".join(a.split()) for a in params.split(",") if a.strip()]
+    assert sorted(defined) == sorted(cuda_lib.ENTRIES)
+    for name, entry in cuda_lib.ENTRIES.items():
+        params = defined[name]
+        assert len(params) == len(entry.argtypes) + bool(entry.launches), name
+        assert (params[-1:] == ["void* stream"]) == bool(entry.launches), name
+    assert set(cuda_lib.LAUNCHES) == {e.launches for e in cuda_lib.ENTRIES.values()
+                                      if e.launches}
+    for path in sorted((PKG / "ops").glob("*.py")):
+        src = path.read_text()
+        assert set(re.findall(r"[\"'](mkv_\w+)[\"']", src)) <= set(cuda_lib.ENTRIES), path.name
+        if path.name != "cuda_lib.py":
+            assert "argtypes" not in src and not re.search(r"\.mkv_\w+\(", src), path.name
+
+
+_OPS_WITHOUT_DIFF = r"""
+import importlib, sys
+sys.modules["merklekv_tpu_torch.merkle.diff"] = None  # any import of it raises
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+print("ok", len(sys.argv) - 1)
+"""
+
+
+def test_ops_imports_without_merkle_diff():
+    """The ``ops`` layer sits below ``merkle``: every module of it imports
+    in a process where ``merkle.diff`` cannot be imported."""
+    ops = [m for m in MODULES if m.startswith("merklekv_tpu_torch.ops.")]
+    out = subprocess.run([sys.executable, "-c", _OPS_WITHOUT_DIFF, *ops], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(ROOT)))
+    assert out.returncode == 0 and out.stdout.split() == ["ok", str(len(ops))], out.stderr
 
 
 def test_native_build_writes_only_under_build_native(tmp_path, monkeypatch):

@@ -24,7 +24,7 @@ from merklekv_tpu_torch.merkle.encoding import encode_leaf
 from merklekv_tpu_torch.merkle.packing import pack_leaves
 from merklekv_tpu_torch.ops import dispatch
 from merklekv_tpu_torch.ops import sha256 as t_sha
-from merklekv_tpu_torch.ops import sha256_cuda
+from merklekv_tpu_torch.ops import cuda_lib, sha256_cuda
 
 _jax_blocks = jax.jit(jax_sha.sha256_blocks)
 _jax_pairs = jax.jit(jax_sha.sha256_node_pairs)
@@ -121,7 +121,7 @@ def test_node_level_is_adjacent_pairs(m):
 def test_cpu_wrappers_and_dispatch_take_plain_versions():
     """On CPU tensors the CUDA wrappers and the dispatch return the plain
     versions' results, without launching (and without building) anything."""
-    sha256_cuda.reset_launch_counts()
+    cuda_lib.reset_launch_counts()
     keys, vals = _random_leaves(4, 20, 30, 100)
     packed = pack_leaves(keys, vals)
     blocks, nblocks = _t(packed.blocks), torch.from_numpy(packed.nblocks)
@@ -132,7 +132,7 @@ def test_cpu_wrappers_and_dispatch_take_plain_versions():
     assert torch.equal(dispatch.hash_node_level(cur), t_sha.sha256_node_level(cur))
     assert torch.equal(dispatch.hash_node_pairs(cur[:10], cur[10:20]),
                        t_sha.sha256_node_pairs(cur[:10], cur[10:20]))
-    assert set(sha256_cuda.LAUNCHES.values()) == {0}
+    assert set(cuda_lib.LAUNCHES.values()) == {0}
 
 
 def test_digest_byte_helpers_match_jax():

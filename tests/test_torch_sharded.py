@@ -52,7 +52,7 @@ from merklekv_tpu_torch.merkle import diff as tdiff
 from merklekv_tpu_torch.merkle.cpu import build_levels, ref_level_sizes
 from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
 from merklekv_tpu_torch.merkle.encoding import leaf_hash
-from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState, _reduce_levels
+from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState
 from merklekv_tpu_torch.merkle.packing import pack_leaves
 from merklekv_tpu_torch.native_bindings import NativeEngine
 from merklekv_tpu_torch.obs.flightrec import get_recorder
@@ -143,7 +143,7 @@ def test_sharded_tree_root_matches_jax(d, per_shard):
     want = np.asarray(jsm.sharded_tree_root(_jmesh({"key": d}), leaves))
     got = words_np(sharded_tree_root(make_mesh({"key": d}, devices=CPU8), leaves))
     np.testing.assert_array_equal(got, want)
-    np.testing.assert_array_equal(got, words_np(_reduce_levels(torch.from_numpy(leaves.view(np.int32)))[-1][0]))
+    np.testing.assert_array_equal(got, words_np(dispatch.build_levels(torch.from_numpy(leaves.view(np.int32)))[-1][0]))
 
 
 @pytest.mark.parametrize("n", [10, 12])
@@ -380,7 +380,7 @@ def test_promotion_chain_sweep_matches_jax(l):
     for n in range(1, min(3 * l + 1, c) + 1):
         leaves = np.zeros((c, 8), np.uint32)
         leaves[:n] = _words(n, (n, 8))
-        levels = _reduce_levels(torch.from_numpy(leaves.view(np.int32)))
+        levels = dispatch.build_levels(torch.from_numpy(leaves.view(np.int32)))
         want = np.asarray(ref(tuple(jax.numpy.asarray(words_np(lv)) for lv in levels), n))
         ts = ShardedDeviceMerkleState.from_levels(
             [words_np(lv) for lv in levels], [b"%06d" % i for i in range(n)], shards=d,

@@ -75,6 +75,7 @@ def refuse(*a, **k):
 subprocess.Popen.__init__ = refuse
 import merklekv_tpu_torch.ops as ops
 assert "merklekv_tpu_torch.ops.sha256_cuda" not in sys.modules
+assert "merklekv_tpu_torch.ops.cuda_lib" not in sys.modules
 assert "merklekv_tpu_torch.ops.merkle_paths" not in sys.modules
 assert ops.sha256_blocks.__module__ == "merklekv_tpu_torch.ops.sha256"
 print("ok")

@@ -69,7 +69,8 @@ def run_tree(tree: Path, seed: int) -> int:
 
     import merklekv_tpu_torch
     from merklekv_tpu_torch.ops import sha256 as plain
-    from merklekv_tpu_torch.ops.sha256_cuda import build_kernels, node_pairs_cuda
+    from merklekv_tpu_torch.ops.cuda_lib import build_kernels
+    from merklekv_tpu_torch.ops.sha256_cuda import node_pairs_cuda
 
     if not Path(merklekv_tpu_torch.__file__).resolve().is_relative_to(tree):
         raise AssertionError(f"merklekv_tpu_torch came from {merklekv_tpu_torch.__file__}")
@@ -96,12 +97,12 @@ def run_tree(tree: Path, seed: int) -> int:
 
 
 def build_shape_lib() -> ctypes.CDLL:
-    from merklekv_tpu_torch.ops.sha256_cuda import _nvcc
+    from merklekv_tpu_torch.ops.cuda_lib import nvcc
 
     out_dir = ROOT / "build" / "pairs_shape"
     out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / "libpairs_shape.so"
-    out = subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+    out = subprocess.run([nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                           "-O3", "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v",
                           "-I", str(ROOT / "merklekv_tpu_torch" / "csrc"),
                           "-o", str(lib_path), str(ROOT / "tools" / "pairs_shape.cu")],
@@ -161,9 +162,9 @@ def sass(lib_path: Path, keep: tuple[str, ...], dump_dir: Path) -> dict:
     import re
     import shutil
 
-    from merklekv_tpu_torch.ops.sha256_cuda import _nvcc
+    from merklekv_tpu_torch.ops.cuda_lib import nvcc
 
-    tool = Path(_nvcc()).with_name("cuobjdump")
+    tool = Path(nvcc()).with_name("cuobjdump")
     if not tool.exists():
         tool = Path(shutil.which("cuobjdump") or "cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(lib_path)], capture_output=True, text=True)

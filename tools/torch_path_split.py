@@ -53,12 +53,12 @@ K = 4096
 
 
 def build_split() -> ctypes.CDLL:
-    from merklekv_tpu_torch.ops.sha256_cuda import _nvcc
+    from merklekv_tpu_torch.ops.cuda_lib import nvcc
 
     out_dir = ROOT / "build" / "path_split"
     out_dir.mkdir(parents=True, exist_ok=True)
     lib_path = out_dir / "libpath_split.so"
-    out = subprocess.run([_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+    out = subprocess.run([nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                           "-O3", "-Xcompiler", "-fPIC", "-shared",
                           "-I", str(ROOT / "merklekv_tpu_torch" / "csrc"),
                           "-o", str(lib_path), str(ROOT / "tools" / "path_split.cu")],
@@ -101,7 +101,7 @@ def chain_spread(split, dev, rng) -> dict:
 
     from chip_smoke import rand_words
     from merklekv_tpu_torch.ops import merkle_paths as mp
-    from merklekv_tpu_torch.ops.sha256_cuda import _stream
+    from merklekv_tpu_torch.ops.cuda_lib import current_stream
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     inp = rand_words(rng, (32, 16), dev)
@@ -113,7 +113,7 @@ def chain_spread(split, dev, rng) -> dict:
         runs = []
         for _ in range(10):
             if split.split_chain_sm(rolled, inp.data_ptr(), 21, o.data_ptr(), res.data_ptr(), sms,
-                                    _stream(dev)):
+                                    current_stream(dev)):
                 raise RuntimeError("split_chain_sm failed to launch")
             torch.cuda.synchronize()
             runs.append(res.cpu().numpy().copy())
@@ -136,7 +136,7 @@ def trace(split, dev, st, blocks, nblocks, pos_t, k, depth) -> dict:
     import torch
 
     from merklekv_tpu_torch.ops import merkle_paths as mp
-    from merklekv_tpu_torch.ops.sha256_cuda import _stream
+    from merklekv_tpu_torch.ops.cuda_lib import current_stream
 
     c = 1 << depth
     top = mp._path_top(c)
@@ -147,7 +147,7 @@ def trace(split, dev, st, blocks, nblocks, pos_t, k, depth) -> dict:
         tr.zero_()
         if split.split_trace(ctypes.byref(st), blocks.data_ptr(), nblocks.data_ptr(),
                              pos_t.data_ptr(), k, blocks.shape[1], mp.PATH_WIDTH, top,
-                             scratch.data_ptr(), tr.data_ptr(), _stream(dev)):
+                             scratch.data_ptr(), tr.data_ptr(), current_stream(dev)):
             raise RuntimeError("split_trace failed to launch")
     torch.cuda.synchronize()
     a = tr.cpu().numpy()
@@ -175,9 +175,9 @@ def main() -> int:
         print("torch_path_split: no CUDA device", file=sys.stderr)
         return 2
     from chip_smoke import gpu_line, profiled_kernel_ms, rand_words
-    from merklekv_tpu_torch.merkle.incremental import _reduce_levels
     from merklekv_tpu_torch.ops import merkle_paths as mp
-    from merklekv_tpu_torch.ops.sha256_cuda import _stream, build_kernels
+    from merklekv_tpu_torch.ops.cuda_lib import build_kernels, current_stream
+    from merklekv_tpu_torch.ops.dispatch import build_levels
 
     dev = torch.device("cuda", 0)
     card = gpu_line()
@@ -190,7 +190,7 @@ def main() -> int:
         print(f"[split] chain {d}: {r}", flush=True)
 
     c = 1 << DEPTH
-    base = _reduce_levels(rand_words(rng, (c, 8), dev))
+    base = build_levels(rand_words(rng, (c, 8), dev))
     sets = {
         "random": np.sort(rng.choice(c, size=K, replace=False)),
         "one per 2^8 subtree": np.arange(K) * 256 + rng.integers(0, 256, size=K),
@@ -209,7 +209,7 @@ def main() -> int:
             def launch(mode=mode):
                 rc = split.split_walk(mode, ctypes.byref(st), blocks.data_ptr(), nblocks.data_ptr(),
                                       pos_t.data_ptr(), K, 1, ctr.data_ptr(), ends.data_ptr(),
-                                      _stream(dev))
+                                      current_stream(dev))
                 if rc:
                     raise RuntimeError(f"split_walk mode {mode} failed to launch: {rc}")
             ms, seen = profiled_kernel_ms(launch, "walk_kernel", args.reps)
@@ -220,7 +220,7 @@ def main() -> int:
         st0 = mp._levels_struct(got, dev)
         split.split_walk(0, ctypes.byref(st0), blocks.data_ptr(), nblocks.data_ptr(),
                          pos_t.data_ptr(), K, 1,
-                         ctr.data_ptr(), ends.data_ptr(), _stream(dev))
+                         ctr.data_ptr(), ends.data_ptr(), current_stream(dev))
         mp.path_rehash(want, blocks, nblocks, pos)
         row["mode0_exact"] = all(torch.equal(g, w) for g, w in zip(got, want))
         # The kernel the wrapper launches now, on the same inputs.
@@ -250,7 +250,7 @@ def main() -> int:
 
         def old_walk():
             if split.split_walk(0, ctypes.byref(st), bblocks.data_ptr(), bnb.data_ptr(),
-                                pos_t.data_ptr(), k, 1, ctr.data_ptr(), 0, _stream(dev)):
+                                pos_t.data_ptr(), k, 1, ctr.data_ptr(), 0, current_stream(dev)):
                 raise RuntimeError("split_walk failed to launch")
         row = {"k": k, "mode0_ms": profiled_kernel_ms(old_walk, "walk_kernel", 10)[0],
                "current_ms": profiled_kernel_ms(
