@@ -86,7 +86,11 @@ Phases, one line each (an uncaught failure exits nonzero):
               kernel's device time, bound and share at P = 64, 512, 4096,
               4 x 32 x SMs, 65,536 and 5,242,880). A ``[path k]`` line
               gives, per phase, the batch sizes k of the path-rehash
-              launches (largest, and launches by power of two).
+              launches (largest, and launches by power of two). The diff
+              kernel has two rows: ``diff``, its standalone grid, and
+              ``diff_beside``, the co-resident grid the anti-entropy step
+              runs beside the leaf hash, timed alone; both are checked
+              bit for bit in phase 2 and count the one entry's launches.
 8. node     — the node entry, at 1M keys (config 4) and only through what a
               user runs. 8a: ``python -m merklekv_tpu_torch`` spawned with
               replication on the in-process bus and anti-entropy engine
@@ -342,6 +346,9 @@ PAIRS_SWEEP = (64, 512, 4096, None, 65536, 5 * (1 << 20))
 # Kernels the main path (phases 3 to 6 and 8) must launch; node_pairs is held
 # against its plain version in phase 2 but no longer runs on the main path.
 MAIN_PATH_KERNELS = ("leaf", "node_level", "path_rehash", "promotion_chain")
+# A kernels-line row whose launches are counted under another entry's key
+# (ops/cuda_lib.py's LAUNCHES counts an entry's launches in any grid).
+LAUNCH_KEY = {"diff_beside": "diff"}
 
 
 def log(msg: str) -> None:
@@ -579,7 +586,7 @@ def phase_kernels(dev, rng: np.random.Generator, sizes=(1, 2, 3, 4097, 1 << 20))
         node_pairs_cuda,
     )
 
-    errs = {"leaf": 0, "node_level": 0, "node_pairs": 0, "diff": 0}
+    errs = {"leaf": 0, "node_level": 0, "node_pairs": 0, "diff": 0, "diff_beside": 0}
     checks = 0
 
     def hold(name, got, want, what):
@@ -618,17 +625,24 @@ def phase_kernels(dev, rng: np.random.Generator, sizes=(1, 2, 3, 4097, 1 << 20))
         if plain.digests_to_bytes(got[rows].cpu().numpy().view(np.uint32)) != [
                 hashlib.sha256(m.astype(">u4").tobytes()).digest() for m in msgs]:
             raise AssertionError(f"node_pairs kernel differs from hashlib at P={p}")
-    # The diff kernel: masks and counts as one int32 row each, on whole
-    # stacks and on a key slice (replica stride other than N).
+    # The diff kernel, in its standalone grid and in the co-resident one the
+    # anti-entropy step launches beside the leaf hash: masks and counts as
+    # one int32 row each, on whole stacks and on a key slice (replica
+    # stride other than N).
     from merklekv_tpu_torch.ops.diff_cuda import divergence_cuda, divergence_plain
 
-    for r, n, lo in ((1, 1, 0), (3, 4097, 0), (8, 1 << 20, 0), (8, (1 << 20) - 3, 3)):
+    def as_row(mc):
+        return torch.cat([mc[0].to(torch.int32).flatten(), mc[1]])
+
+    for r, n, lo in ((1, 1, 0), (3, 4097, 0), (8, 1 << 20, 0), (8, (1 << 20) - 3, 3),
+                     (64, 70001, 0)):
         digests, present, _ = replica_stacks(dev, int(rng.integers(1 << 30)), lo + n, r)
         digests, present = digests[:, lo:], present[:, lo:]
-        got, want = divergence_cuda(digests, present), divergence_plain(digests, present)
-        hold("diff", torch.cat([got[0].to(torch.int32).flatten(), got[1]]),
-             torch.cat([want[0].to(torch.int32).flatten(), want[1]]), f"R={r} N={n} from {lo}")
-        del digests, present, got, want
+        want = as_row(divergence_plain(digests, present))
+        hold("diff", as_row(divergence_cuda(digests, present)), want, f"R={r} N={n} from {lo}")
+        hold("diff_beside", as_row(divergence_beside(digests, present)), want,
+             f"R={r} N={n} from {lo}")
+        del digests, present, want
 
     # hashlib: random-byte leaves of 0..200 bytes (1-4 blocks), and nodes.
     keys = [rng.bytes(int(rng.integers(0, 40))) for _ in range(300)]
@@ -734,6 +748,20 @@ def make_kv(n: int, lo: int = 0):
     keys = [b"user:%012d" % i for i in range(lo, n)]
     values = [b"value-%d-payload" % (i % 9973) for i in range(lo, n)]
     return keys, values
+
+
+def divergence_beside(digests, present):
+    """The diff kernel in the co-resident grid the anti-entropy step runs
+    beside the leaf hash (``ops.diff_cuda.divergence_beside_cuda``), here on
+    the current stream into new outputs: (masks, counts)."""
+    import torch
+
+    from merklekv_tpu_torch.ops.diff_cuda import divergence_beside_cuda
+
+    masks = torch.empty(tuple(present.shape), dtype=torch.bool, device=present.device)
+    counts = torch.zeros(present.shape[0], dtype=torch.int32, device=present.device)
+    divergence_beside_cuda(digests, present, masks, counts)
+    return masks, counts
 
 
 def replica_stacks(dev, seed: int, n_keys: int, n_rep: int):
@@ -3241,6 +3269,13 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
          lambda: divergence_cuda(digests, present), lambda: divergence_plain(digests, present),
          REPLICAS * n * (32 + 1 + 1) + 4 * REPLICAS, 0, 0, None,
          f"[{REPLICAS}, {n}, 8]", 10),
+        # The same kernel in the co-resident grid the anti-entropy step runs
+        # beside the leaf hash, here alone on the card.
+        ("diff_beside", "diff_kernels.cu", "merklekv_tpu/merkle/diff.py:98 (XLA's fusion)",
+         "diff_kernel",
+         lambda: divergence_beside(digests, present), lambda: divergence_plain(digests, present),
+         REPLICAS * n * (32 + 1 + 1) + 4 * REPLICAS, 0, 0, None,
+         f"[{REPLICAS}, {n}, 8], one 128-thread block an SM", 10),
     ]
     # Device times first, each in its own profiler session; then the serial
     # floors: the root's path is a leaf of the batch's one block and `depth`
@@ -3274,7 +3309,8 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
             f"{logic} shift/logic + {adds} add ops{floor_txt})")
         out.append({
             "name": name, "route": "cuda", "source": f"merklekv_tpu_torch/csrc/{src}",
-            "replaces": repl, "launches": launches[name], "max_abs_err": errs[name],
+            "replaces": repl, "launches": launches[LAUNCH_KEY.get(name, name)],
+            "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
             "library_ms": None, "serial_floor_ms": floor,
         })
@@ -3431,11 +3467,12 @@ def main() -> int:
     log_path_ks(ks)
     kernels = phase_kernel_times(dev, rng, reb["blocks"], reb["nblocks"], errs, launches)
     for k in kernels:
-        k["launches_node"] = node["launches"][k["name"]]
-        k["launches_sharded"] = shd["launches"][k["name"]]
-        k["launches_durable"] = dur["launches"][k["name"]]
-        k["launches_multihost"] = mh["launches"][k["name"]]
-        k["launches_partitions"] = part["launches"][k["name"]]
+        key = LAUNCH_KEY.get(k["name"], k["name"])
+        k["launches_node"] = node["launches"][key]
+        k["launches_sharded"] = shd["launches"][key]
+        k["launches_durable"] = dur["launches"][key]
+        k["launches_multihost"] = mh["launches"][key]
+        k["launches_partitions"] = part["launches"][key]
     device_profile("rebuild+diff 10M x 8", reb.pop("forward"), 3)
     batch = srv.pop("batch")
     prof = device_profile("serving batch of 4096 + root read", batch, 5)

@@ -28,6 +28,33 @@
 // per replica and tile (32 lanes x 8 loads = 256 halves of 128 digests).
 constexpr int kMkvDiffTileKeys = 128;
 constexpr int kMkvDiffLoads = 8;
+// Threads a block of the standalone launch (diff_kernel's
+// __launch_bounds__: the most any launch takes), and the co-resident launch's
+// blocks an SM and threads a block: one block of 128 threads an SM, beside
+// the leaf hash (tools/torch_diff_beside.py, PERF.md).
+constexpr int kMkvDiffThreads = 256;
+constexpr int kMkvDiffBesideBlocks = 1;
+constexpr int kMkvDiffBesideThreads = 128;
+
+// Threads a block of diff_kernel's launch, standalone or beside.
+MKV_DIFF_FN int mkv_diff_threads(bool beside) {
+  return beside ? kMkvDiffBesideThreads : kMkvDiffThreads;
+}
+
+// Blocks of diff_kernel's grid over n keys (whole warps, each striding over
+// the tiles), never more than the tiles need. Standalone: as many as the
+// card holds at once, `resident` an SM (the occupancy calculator's count;
+// at least 1) times `sms`. Beside (a diff that runs beside another kernel
+// on each SM and leaves it the rest of the SM's registers):
+// kMkvDiffBesideBlocks an SM.
+MKV_DIFF_FN int64_t mkv_diff_grid(int64_t n, int sms, int resident, bool beside) {
+  const int64_t tiles = (n + kMkvDiffTileKeys - 1) / kMkvDiffTileKeys;
+  const int64_t warps = mkv_diff_threads(beside) / 32;
+  const int64_t wanted = (tiles + warps - 1) / warps;
+  const int64_t a_sm = beside ? kMkvDiffBesideBlocks : (resident > 0 ? resident : 1);
+  const int64_t cap = static_cast<int64_t>(sms) * a_sm;
+  return wanted < cap ? wanted : cap;
+}
 
 // THE divergence predicate (merkle/diff.py::divergence_vs_ref): a key
 // diverges from the reference iff presence differs, or both are present

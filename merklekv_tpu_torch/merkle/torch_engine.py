@@ -17,16 +17,23 @@ Two build paths, as in the JAX engine:
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from merklekv_tpu_torch.merkle.packing import pack_leaves
-from merklekv_tpu_torch.ops.dispatch import build_levels, divergence, hash_blocks, hash_node_level
+from merklekv_tpu_torch.ops.dispatch import (
+    build_levels,
+    divergence,
+    divergence_beside,
+    hash_blocks,
+    hash_node_level,
+)
 from merklekv_tpu_torch.ops.sha256 import digest_to_bytes, digests_to_bytes
 from merklekv_tpu_torch.utils.torchenv import as_tensor, resolve_device, words_np
-from merklekv_tpu_torch.utils.tracing import device_span
+from merklekv_tpu_torch.utils.tracing import device_span, get_metrics
 
 __all__ = [
     "leaf_digests",
@@ -34,6 +41,8 @@ __all__ = [
     "tree_root",
     "tree_root_capacity",
     "anti_entropy_forward",
+    "DiffBeside",
+    "diff_stream",
     "TorchMerkleTree",
 ]
 
@@ -47,22 +56,98 @@ def anti_entropy_forward(blocks, nblocks, digests, present, device=None):
     tensors) — moved to ``device`` (``None`` = CUDA).
     Returns (root [8] int32, masks [R, N] bool, counts [R] int32) on device.
 
+    On a card the diff runs beside the leaf hash and the levels
+    (:class:`DiffBeside`): it reads nothing the tree writes. The results
+    come back once the current stream has waited for it, so a caller's
+    reads on that stream, and whatever it allocates next, come after the
+    diff.
+
     While a profiler session records on the calling thread, the step is the
     device span ``ae.cycle`` with the phases ``ae.leaf`` (hash every leaf),
-    ``ae.levels`` (the tree) and ``ae.diff`` (the masks and the counts, one
-    ``ops.dispatch.divergence`` call) in it (``utils.tracing.device_span``);
-    the copy of a host array to the device falls in the phase that reads
-    it.
+    ``ae.diff`` (the masks and the counts, on the side stream), ``ae.levels``
+    (the tree) and ``ae.diff_wait`` (the current stream's wait for the diff:
+    the part of it the leaf hash and the levels did not hide) in it
+    (``utils.tracing.device_span``); the copy of a host array of blocks to
+    the device falls in ``ae.leaf``, of digests or presence before it.
     """
     dev = resolve_device(device)
     with device_span("ae.cycle", dev):
+        diff = DiffBeside(dev, as_tensor(digests, dev), as_tensor(present, dev, torch.bool))
         with device_span("ae.leaf", dev):
             leaves = hash_blocks(as_tensor(blocks, dev), as_tensor(nblocks, dev))
+        diff.start()
         with device_span("ae.levels", dev):
             root = build_levels(leaves)[-1][0]
-        with device_span("ae.diff", dev):
-            masks, counts = divergence(as_tensor(digests, dev), as_tensor(present, dev, torch.bool))
-    return root, masks, counts
+        diff.wait()
+    return root, diff.masks, diff.counts
+
+
+# ---------------------------------------------------- the diff beside the tree
+
+_diff_streams: dict = {}
+_diff_streams_lock = threading.Lock()
+
+
+def diff_stream(dev: torch.device) -> torch.cuda.Stream:
+    """Card ``dev``'s high-priority side stream for the diff, made at first
+    use and kept."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    with _diff_streams_lock:
+        stream = _diff_streams.get(index)
+        if stream is None:
+            stream = _diff_streams[index] = torch.cuda.Stream(index, priority=-1)
+        return stream
+
+
+class DiffBeside:
+    """The N-replica diff of ``digests`` [R, N, 8] and ``present`` [R, N]
+    (on ``dev``), run beside the leaf hash that the caller queues on the
+    current stream between making this object and :meth:`start`.
+
+    On a card: made, it makes ``masks`` and ``counts`` on the current
+    stream (the counts zeroed there) and marks the current stream's work so
+    far (the caller's writes of the inputs); :meth:`start` has the card's
+    side stream (:func:`diff_stream`) wait for that mark alone, not for the
+    leaf hash queued since, and runs the kernel there in its co-resident
+    shape (``ops.dispatch.divergence_beside``): a high-priority grid of one
+    block an SM, which takes the next slot a leaf block frees on each SM;
+    :meth:`wait` makes the current stream wait for it. The caller calls
+    :meth:`wait` before any reader of the results, and keeps the inputs
+    alive until then. Each started diff adds 1 to the counter
+    ``device.ae_diff_overlapped``. On the CPU :meth:`start` runs the diff
+    in turn and :meth:`wait` waits for nothing. The device spans are
+    ``ae.diff`` (on the stream that runs the diff) and ``ae.diff_wait``
+    (on the current stream).
+    """
+
+    def __init__(self, dev: torch.device, digests: torch.Tensor, present: torch.Tensor) -> None:
+        self.dev, self.digests, self.present = dev, digests, present
+        self.done = None
+        if dev.type != "cuda":
+            self.masks = self.counts = None
+            return
+        r, n = present.shape
+        self.masks = torch.empty((r, n), dtype=torch.bool, device=dev)
+        self.counts = torch.zeros(r, dtype=torch.int32, device=dev)
+        self._ready = torch.cuda.current_stream(dev).record_event()
+
+    def start(self) -> None:
+        if self.dev.type != "cuda":
+            with device_span("ae.diff", self.dev):
+                self.masks, self.counts = divergence(self.digests, self.present)
+            return
+        side = diff_stream(self.dev)
+        side.wait_event(self._ready)
+        with torch.cuda.stream(side), device_span("ae.diff", self.dev):
+            divergence_beside(self.digests, self.present, self.masks, self.counts)
+        self.done = side.record_event()
+        get_metrics().inc("device.ae_diff_overlapped")
+
+    def wait(self) -> None:
+        with device_span("ae.diff_wait", self.dev):
+            if self.done is not None:
+                torch.cuda.current_stream(self.dev).wait_event(self.done)
+        self.digests = self.present = None
 
 
 # ------------------------------------------------------------ leaf hashing

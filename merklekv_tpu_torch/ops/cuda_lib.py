@@ -98,7 +98,7 @@ ENTRIES = {
     "mkv_node_pairs": Entry("node_pairs", [_p, _p, _p, _i64]),
     "mkv_path_rehash": Entry("path_rehash", [_lv, _p, _p, _p, _i32, _i32, _i32, _i32, _p]),
     "mkv_promotion_chain": Entry("promotion_chain", [_lv, _i64, _i32, _p]),
-    "mkv_divergence": Entry("diff", [_p, _i64, _p, _i64, _p, _p, _i64, _i32]),
+    "mkv_divergence": Entry("diff", [_p, _i64, _p, _i64, _p, _p, _i64, _i32, _i32]),
     "mkv_hash_chain": Entry("hash_chain", [_p, _i32, _i32, _p, _p]),
     "mkv_copy_2d": Entry("copy_2d", [_p, _i64, _p, _i64, _i64, _i64]),
     "mkv_enable_peer_access": Entry(None, [_i32, _i32]),

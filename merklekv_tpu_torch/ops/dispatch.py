@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from merklekv_tpu_torch.ops.diff_cuda import divergence_cuda
+from merklekv_tpu_torch.ops.diff_cuda import divergence_beside_cuda, divergence_cuda
 from merklekv_tpu_torch.ops.merkle_paths import (
     path_rehash_cuda,
     path_scratch,
@@ -44,6 +44,7 @@ __all__ = [
     "path_scratch",
     "promotion_chain",
     "divergence",
+    "divergence_beside",
 ]
 
 
@@ -97,3 +98,12 @@ def divergence(digests: torch.Tensor, present: torch.Tensor) -> tuple[torch.Tens
     """[R, N, 8] int32 digests + [R, N] bool presence -> ([R, N] bool masks
     of the keys that diverge from replica 0, [R] int32 counts of each row)."""
     return divergence_cuda(digests, present)
+
+
+def divergence_beside(digests: torch.Tensor, present: torch.Tensor, masks: torch.Tensor,
+                      counts: torch.Tensor) -> None:
+    """The same diff of CUDA tensors into ``masks`` and zeroed ``counts``, on
+    the current stream in the kernel's co-resident shape: for the
+    anti-entropy step, which runs it on a side stream beside the leaf hash
+    (``merkle.torch_engine.DiffBeside``)."""
+    divergence_beside_cuda(digests, present, masks, counts)

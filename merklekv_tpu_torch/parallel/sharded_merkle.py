@@ -69,6 +69,7 @@ import numpy as np
 import torch
 
 from merklekv_tpu_torch.merkle.cpu import ref_level_sizes
+from merklekv_tpu_torch.merkle.torch_engine import DiffBeside
 from merklekv_tpu_torch.ops.diff_cuda import divergence_vs_ref
 from merklekv_tpu_torch.ops.dispatch import (
     build_levels,
@@ -213,23 +214,28 @@ class _ColumnGather:
     with no per-device temporaries and no ``torch.cat``. Made once every
     block's writes are queued; :meth:`join` returns the result.
 
+    ``ready`` holds, for each block, the CUDA event after its writes, or
+    None where they are on its device's current stream; with no ``ready``
+    every block's are. Each slice's copy waits for its block's writes as
+    they stand when the gather is made, and not for what the cards queue
+    after them.
+
     On distinct CUDA cards that reach each other's memory, each slice is
     one 2-D ``cudaMemcpy2DAsync`` (``ops/mesh_copy.py``; across cards the
-    copy engines move it over NVLink) on a side stream of the first card.
-    That stream waits on each card's current stream as it stands when the
-    gather is made, so on the blocks' writes and not on what the cards
-    queue after them: the copies run under that work.
-    :meth:`join` makes the first card's current stream wait on the copies,
-    and each source card's too, so that the caching allocator hands out no
-    block's memory again while a copy still reads it. Elsewhere (the CPU,
-    devices that shards share) each slice is a plain ``copy_`` on the
-    current stream, and a single block already on the first device is the
+    copy engines move it over NVLink) on a side stream of the first card,
+    which waits for each block's writes just before its copy: the copies
+    run under the work the cards queue next. :meth:`join` makes the first
+    card's current stream wait on the copies, and each source card's too,
+    so that the caching allocator hands out no block's memory again while
+    a copy still reads it. Elsewhere (the CPU, devices that shards share)
+    each slice is a plain ``copy_`` on the current stream, after its
+    block's writes, and a single block already on the first device is the
     result itself. ``span`` names a device span around the copies, on the
     stream that runs them.
     """
 
     def __init__(self, parts: Sequence[torch.Tensor], devs: Sequence[torch.device],
-                 span: str | None = None) -> None:
+                 span: str | None = None, ready: Sequence | None = None) -> None:
         self._done = None
         self._streams: list = []
         self._parts = None
@@ -241,20 +247,24 @@ class _ColumnGather:
         self.out = torch.empty((r, l * len(parts)), dtype=parts[0].dtype, device=dev)
         engines = _copy_engines(devs)
         where = contextlib.nullcontext()
+        ready = list(ready) if ready is not None else [None] * len(parts)
         if engines:
             side = torch.cuda.Stream(device=dev)  # one of torch's pooled streams
             self._streams = [torch.cuda.current_stream(d) for d in devs]
-            for d, stream in zip(devs, self._streams):
+            for d in devs:
                 if d != dev:
                     enable_peer_access(dev.index, d.index)
                     enable_peer_access(d.index, dev.index)
-                side.wait_stream(stream)
+            ready = [ev if ev is not None else stream.record_event()
+                     for ev, stream in zip(ready, self._streams)]
             where = torch.cuda.stream(side)
         with where, device_span(span, dev) if span else contextlib.nullcontext():
             # The other devices' blocks first: on an H100 the copy within the
             # first card started only once SMs were free (in the fused step,
             # as its leaf hash ended) and held back the copies queued behind it.
             for s in [*range(1, len(parts)), 0]:
+                if ready[s] is not None:
+                    torch.cuda.current_stream(dev).wait_event(ready[s])
                 if engines:
                     copy_columns(self.out, s * l, parts[s], side)
                 else:
@@ -466,19 +476,23 @@ def make_anti_entropy_step(mesh: Mesh, axis: str = "key"):
     function ``step(blocks, nblocks, digests, present)`` (the JAX package
     returns a compiled program):
 
-      1. compare R replicas' digest blocks elementwise on each shard's
-         device (masks and per-replica counts), and gather the masks on
-         the first device (:class:`_ColumnGather`: on distinct cards by
-         the copy engines, while the next steps run);
-      2. hash every local (key, value) leaf on its shard's device;
-      3. reduce the local leaves to the shard's seam, copy the D seams to
-         the first device and finish the tree there (see the module's
-         note: any L >= 1 leaves a shard; an odd L sends every leaf there);
-         sum the per-replica counts; wait for the masks.
+      1. hash every local (key, value) leaf on its shard's device;
+      2. compare R replicas' digest blocks elementwise on each shard's
+         device (masks and per-replica counts), on a card beside the leaf
+         hash (``merkle.torch_engine.DiffBeside``: the card's
+         high-priority side stream, a grid of one block an SM), and
+         gather the masks on the first device (:class:`_ColumnGather`: on
+         distinct cards by the copy engines, each card's as its diff ends);
+      3. reduce the local leaves to the shard's seam, wait for the shard's
+         diff, copy the D seams to the first device and finish the tree
+         there (see the module's note: any L >= 1 leaves a shard; an odd L
+         sends every leaf there); sum the per-replica counts; wait for the
+         masks.
 
-    The diff reads nothing the leaf hash writes, so running it first
-    changes no answer; it lets the masks cross to the first card while
-    the cards hash their leaves, and keeps the masks alive beside them.
+    The diff reads nothing the leaf hash writes, so running it beside the
+    leaf hash changes no answer: the diff takes the bytes, the leaf hash
+    the integer pipes, and the masks cross to the first card while the
+    cards hash their leaves.
 
     Inputs (global shapes, numpy arrays or tensors; N divisible by the
     mesh axis):
@@ -495,18 +509,22 @@ def make_anti_entropy_step(mesh: Mesh, axis: str = "key"):
 
     While a profiler session records on the calling thread, a step is the
     device span ``ae.cycle`` on the first device; in it each shard's
-    ``ae.diff`` (its masks and counts) on the shard's device, then
-    ``ae.gather`` on the first device (the masks' copies, on the stream
-    that runs them: the side stream on distinct cards), then each shard's
-    ``ae.leaf`` and ``ae.levels`` (its seam), then ``ae.combine`` on the
-    first device (the counts' sum, the tree's finish, the wait for the
-    masks), and inside it ``ae.seam`` (the seams' gather and the tree's
-    finish) and ``ae.gather_wait`` (the first device's wait for the masks'
-    copies: the part of the gather the leaf hash did not hide). Each step
-    adds 1 to the counter ``device.ae_mesh_steps`` and to
-    ``device.ae_combine_bytes`` the bytes of the seams, masks and counts of
-    every shard after the first: what crosses to the first device when the
-    shards are on distinct cards (across processes, this rank's).
+    ``ae.leaf`` on the shard's device, then each shard's ``ae.diff`` (its
+    masks and counts) on the stream that runs it, then ``ae.gather`` on
+    the first device (the masks' copies, on the stream that runs them: the
+    copy stream on distinct cards), then each shard's ``ae.levels`` (its
+    seam) and ``ae.diff_wait`` (its current stream's wait for its diff:
+    the part the leaf hash and the levels did not hide), then
+    ``ae.combine`` on the first device (the counts' sum, the tree's
+    finish, the wait for the masks), and inside it ``ae.seam`` (the seams'
+    gather and the tree's finish) and ``ae.gather_wait`` (the first
+    device's wait for the masks' copies: the part of the gather the leaf
+    hash did not hide). Each step adds 1 to the counter
+    ``device.ae_mesh_steps`` and to ``device.ae_combine_bytes`` the bytes
+    of the seams, masks and counts of every shard after the first: what
+    crosses to the first device when the shards are on distinct cards
+    (across processes, this rank's); each shard's diff on a card adds 1 to
+    ``device.ae_diff_overlapped``.
     """
     devs = mesh.axis_devices(axis)
     d = len(devs)
@@ -514,21 +532,26 @@ def make_anti_entropy_step(mesh: Mesh, axis: str = "key"):
     def step(blocks, nblocks, digests, present):
         _shard_len(_rows(blocks, 0, d), d)
         with device_span("ae.cycle", devs[0]):
-            masks, counts = [], []
-            for dev, dig, pres in zip(devs, _shards(digests, devs, 1),
-                                      _shards(present, devs, 1, torch.bool)):
-                with device_span("ae.diff", dev):
-                    m, c = divergence(dig, pres)
-                masks.append(m)
-                counts.append(c)
-            gather = _ColumnGather(masks, devs, "ae.gather")
-            seams = []
+            # Every card's leaf hash is queued first, so that none waits on
+            # the host's launches; each diff then takes the next slot a leaf
+            # block frees on each SM. The inputs stay referenced (in the
+            # diffs) until each diff is waited for.
+            diffs = [DiffBeside(dev, dig, pres) for dev, dig, pres in
+                     zip(devs, _shards(digests, devs, 1), _shards(present, devs, 1, torch.bool))]
+            leaves = []
             for dev, blk, nb in zip(devs, _shards(blocks, devs, 0), _shards(nblocks, devs, 0)):
                 with device_span("ae.leaf", dev):
-                    leaves = hash_blocks(blk, nb)
+                    leaves.append(hash_blocks(blk, nb))
+            for diff in diffs:
+                diff.start()
+            masks, counts = [d.masks for d in diffs], [d.counts for d in diffs]
+            gather = _ColumnGather(masks, devs, "ae.gather", ready=[d.done for d in diffs])
+            seams = []
+            for s, (dev, diff) in enumerate(zip(devs, diffs)):
                 with device_span("ae.levels", dev):
-                    seams.append(_seam(leaves))
-                del leaves  # freed before the next shard's leaves on a shared device
+                    seams.append(_seam(leaves[s]))
+                leaves[s] = None
+                diff.wait()
             with device_span("ae.combine", devs[0]):
                 total = _psum(counts, devs[0], mesh)
                 with device_span("ae.seam", devs[0]):

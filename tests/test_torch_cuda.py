@@ -520,8 +520,9 @@ def test_device_profile_traces_the_kernels(dev, tmp_path):
 def test_device_spans_time_the_cycle_on_the_card(dev, tmp_path):
     """Under ``device_profile`` on the calling thread, each cycle's
     ``ae.*`` spans get device times from their CUDA events (the phases
-    inside the cycle's), the second cycle the gap after the first, and
-    the trace holds them as ``gpu_user_annotation`` ranges."""
+    inside the cycle's: the diff on its side stream, the others in turn on
+    the current one), the second cycle the gap after the first, and the
+    trace holds them as ``gpu_user_annotation`` ranges."""
     from merklekv_tpu_torch.utils import tracing
 
     n, r = 4099, 3
@@ -543,11 +544,19 @@ def test_device_spans_time_the_cycle_on_the_card(dev, tmp_path):
         tracing.clear_device_spans()
     for a, b in zip(want, got):
         assert torch.equal(a, b)
-    assert [s["name"] for s in recs] == ["ae.cycle", "ae.leaf", "ae.levels", "ae.diff"] * 2
-    for cyc in (recs[:4], recs[4:]):
-        assert all(s["device"] == 0 and s["device_ms"] > 0 for s in cyc)
-        assert sum(s["device_ms"] for s in cyc[1:]) <= cyc[0]["device_ms"] * 1.001
-    assert recs[0]["between_ms"] is None and recs[4]["between_ms"] >= 0
+    phases = ["ae.leaf", "ae.diff", "ae.levels", "ae.diff_wait"]
+    assert [s["name"] for s in recs] == ["ae.cycle", *phases] * 2
+    for cyc in (recs[:5], recs[5:]):
+        by = {s["name"]: s for s in cyc}
+        assert all(s["device"] == 0 and s["device_ms"] >= 0 for s in cyc)
+        assert all(by[name]["device_ms"] > 0
+                   for name in ("ae.cycle", "ae.diff", "ae.leaf", "ae.levels"))
+        # The leaf hash, the levels and the wait run in turn on the current
+        # stream; the diff beside them, on its own.
+        in_turn = sum(by[name]["device_ms"] for name in ("ae.leaf", "ae.levels", "ae.diff_wait"))
+        assert in_turn <= by["ae.cycle"]["device_ms"] * 1.001
+        assert by["ae.diff"]["device_ms"] <= by["ae.cycle"]["device_ms"] * 1.001
+    assert recs[0]["between_ms"] is None and recs[5]["between_ms"] >= 0
     (trace,) = tmp_path.glob("*.pt.trace.json")
     names = {ev.get("name") for ev in json.loads(trace.read_text())["traceEvents"]
              if ev.get("cat") == "gpu_user_annotation"}
@@ -774,3 +783,176 @@ def test_mesh_steps_back_to_back_without_a_host_sync(dev, layout, monkeypatch):
         assert torch.equal(g[2], w[2]), f"step {k}: counts"
         bad = (g[1] != w[1]).sum().item()
         assert bad == 0, f"step {k}: {bad} mask bytes differ"
+
+
+# ------------------------------------------------------------ the diff beside the leaf hash
+
+# Keys: one, a ragged tile, a ragged warp's grid stride, and past one full
+# pass of either grid (the standalone's 2 blocks of 8 warps an SM, the
+# co-resident's 1 of 4: csrc/diff_kernels.cuh; 128 keys a warp's tile) by a
+# ragged count.
+def _beside_keys(dev):
+    grid_keys = torch.cuda.get_device_properties(dev).multi_processor_count * 16 * 128
+    return [1, 33, 4097, 2 * grid_keys + 77]
+
+
+def _step(layout, dev):
+    """The step under test and its devices: the one-card forward, or the
+    key-mesh step over four shards of one card or over every card."""
+    from merklekv_tpu_torch.parallel import sharded_merkle
+    from merklekv_tpu_torch.parallel.mesh import make_mesh
+
+    if layout == "forward":
+        return (lambda *a: te.anti_entropy_forward(*a, device=dev)), [dev]
+    devs = _mesh_devices(dev, layout)
+    return sharded_merkle.make_anti_entropy_step(make_mesh({"key": len(devs)}, devices=devs)), devs
+
+
+def _cycle_inputs(seed, r, n, dev, nblk=2):
+    blocks = _words(seed, (n, nblk, 16), dev)
+    nblocks = torch.full((n,), nblk, dtype=torch.int32, device=dev)
+    dig, pres = _replicas(seed + 1, r, n)
+    return blocks, nblocks, torch.from_numpy(dig.view(np.int32)).to(dev), \
+        torch.from_numpy(pres).to(dev)
+
+
+def _overlapped():
+    from merklekv_tpu_torch.utils.tracing import get_metrics
+
+    return get_metrics().snapshot()["counters"].get("device.ae_diff_overlapped", 0)
+
+
+@pytest.mark.parametrize("layout", ["forward", "one_card", "every_card"])
+@pytest.mark.parametrize("r", [1, 2, 8, 64])
+@pytest.mark.parametrize("k", range(4))
+def test_overlapped_step_matches_serial_and_plain(dev, layout, r, k):
+    """The step with its diff beside the leaf hash gives the root, masks
+    and counts of the serial path (standalone kernels one after another on
+    one stream) and of the plain versions on the CPU, bit for bit; each
+    diff on a card counts once in ``device.ae_diff_overlapped``."""
+    step, devs = _step(layout, dev)
+    n = _beside_keys(dev)[k]
+    n = -(-n // len(devs)) * len(devs)
+    args = _cycle_inputs(100 * r + k, r, n, dev)
+    before = _overlapped()
+    root, masks, counts = step(*args)
+    assert _overlapped() == before + len(devs)
+    serial_masks, serial_counts = dispatch.divergence(args[2], args[3])
+    serial_root = dispatch.build_levels(dispatch.hash_blocks(args[0], args[1]))[-1][0]
+    plain = te.anti_entropy_forward(*(a.cpu() for a in args), device="cpu")
+    for got, serial, cpu in zip((root, masks, counts), (serial_root, serial_masks, serial_counts),
+                                plain):
+        assert torch.equal(got.cpu(), serial.cpu()) and torch.equal(got.cpu(), cpu)
+
+
+def _spin(ms=20):
+    torch.cuda._sleep(int(ms * 2_000_000))  # about ms milliseconds at the card's clock
+
+
+@pytest.mark.parametrize("layout", ["forward", "one_card", "every_card"])
+def test_the_side_stream_waits_for_the_callers_writes(dev, layout):
+    """A digest write queued on the caller's stream behind a spin kernel,
+    before the step: the diff on the side stream sees it. Without the side
+    stream's wait for the caller's stream the diff would run during the
+    spin, on the digests as they were."""
+    step, devs = _step(layout, dev)
+    n = 4 * 4099
+    blocks, nblocks, digests, present = _cycle_inputs(7, 3, n, dev)
+    shards = [blocks, nblocks, digests, present]
+    if layout != "forward":
+        l = n // len(devs)
+        shards = [[t.narrow(dim, s * l, l).to(devs[s]).contiguous() for s in range(len(devs))]
+                  for t, dim in zip((blocks, nblocks, digests, present), (0, 0, 1, 1))]
+    for x in set(devs):
+        torch.cuda.synchronize(x)
+    want = te.anti_entropy_forward(*(t.cpu() for t in (blocks, nblocks, digests, present)),
+                                   device="cpu")
+    same = ~want[1][2] & present[0].cpu() & present[2].cpu()
+    key = int(torch.nonzero(same)[-1])  # present in both, equal: the write makes it diverge
+    flipped = digests.clone()
+    flipped[2, key, 7] ^= 1 << 30
+    want_after = te.anti_entropy_forward(blocks.cpu(), nblocks.cpu(), flipped.cpu(),
+                                         present.cpu(), device="cpu")
+    assert not torch.equal(want[2], want_after[2])
+    if layout == "forward":
+        _spin()
+        digests[2, key, 7] ^= 1 << 30
+    else:
+        s = key // (n // len(devs))
+        with torch.cuda.device(devs[s]):
+            _spin()
+            shards[2][s][2, key - s * (n // len(devs)), 7] ^= 1 << 30
+    root, masks, counts = step(*shards)
+    assert torch.equal(counts.cpu(), want_after[2]) and torch.equal(masks.cpu(), want_after[1])
+    assert torch.equal(root.cpu(), want_after[0])
+
+
+@pytest.mark.parametrize("layout", ["forward", "one_card", "every_card"])
+def test_results_and_copies_wait_for_the_diff(dev, layout, monkeypatch):
+    """A spin kernel on the side stream ahead of each diff holds it back
+    past all else a step queues. The counts and masks the step returns,
+    read at once on the caller's stream, are whole: without the current
+    stream's wait for the diff the counts (zeroed on the caller's stream)
+    read 0, and without the mesh copies' wait for each card's diff the
+    gathered masks are those of the previous step."""
+    step, devs = _step(layout, dev)
+    real = te.divergence_beside
+
+    def held_back(*a):
+        _spin()
+        real(*a)
+
+    n = 4 * 8191
+    first = _cycle_inputs(61, 8, n, dev)
+    step(*first)  # the masks' memory then holds this step's answer
+    second = _cycle_inputs(62, 8, n, dev)
+    want = te.anti_entropy_forward(*(a.cpu() for a in second), device="cpu")
+    assert want[2].sum() > 0 and not torch.equal(want[1], dispatch.divergence(
+        first[2], first[3])[0].cpu())
+    monkeypatch.setattr(te, "divergence_beside", held_back)
+    for x in set(devs):
+        torch.cuda.synchronize(x)
+    root, masks, counts = step(*second)
+    got_counts, got_masks = counts.clone(), masks.clone()  # on the caller's stream
+    assert torch.equal(got_counts.cpu(), want[2]), "the results did not wait for the diff"
+    bad = (got_masks.cpu() != want[1]).sum().item()
+    assert bad == 0, f"{bad} mask bytes read before the diff wrote them"
+    assert torch.equal(root.cpu(), want[0])
+
+
+def test_the_diff_runs_under_the_leaf_hash(dev, tmp_path):
+    """At [8, 1M] keys of 17 blocks, with the caller's stream busy when
+    each cycle is queued (a spin kernel ahead of it, so that both grids
+    wait on the same work and not on the host's launches), the profiler's
+    intervals put most of each diff kernel's interval under its cycle's
+    leaf kernel's: the diff's few blocks an SM and the leaf hash's share
+    the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n, r = 1 << 20, 8
+    blocks = torch.randint(-(2**31), 2**31 - 1, (n, 17, 16), dtype=torch.int32, device=dev)
+    nblocks = torch.full((n,), 17, dtype=torch.int32, device=dev)
+    digests = torch.randint(-(2**31), 2**31 - 1, (1, n, 8), dtype=torch.int32,
+                            device=dev).repeat(r, 1, 1)
+    digests[3, ::97, 2] ^= 1
+    present = torch.ones((r, n), dtype=torch.bool, device=dev)
+    te.anti_entropy_forward(blocks, nblocks, digests, present, device=dev)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            _spin(2)
+            te.anti_entropy_forward(blocks, nblocks, digests, present, device=dev)[0].cpu()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    iv = {"diff_kernel": [], "leaf_kernel": []}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        for name in iv:
+            if e.get("cat") == "kernel" and name in e.get("name", ""):
+                iv[name].append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    # Each diff with the leaf kernel that starts nearest it (the profiler
+    # may drop a kernel's record).
+    under = []
+    for ds, de in iv["diff_kernel"]:
+        ls, le = min(iv["leaf_kernel"], key=lambda x: abs(x[0] - ds))
+        under.append(max(0.0, min(de, le) - max(ds, ls)) / (de - ds))
+    assert len(under) >= 3 and sorted(under)[len(under) // 2] > 0.5, (under, iv)

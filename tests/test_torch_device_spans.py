@@ -27,11 +27,14 @@ from merklekv_tpu_torch.parallel.mesh import make_mesh
 from merklekv_tpu_torch.utils import tracing
 
 CPU = torch.device("cpu")
-PHASES = ["ae.leaf", "ae.levels", "ae.diff"]
-# A key-mesh step of 4 shards: every shard's diff, the masks' gather, every
-# shard's leaf hash and seam, then the combine with the seam and the wait
-# for the masks inside it.
-MESH_SPANS = ["ae.cycle", *["ae.diff"] * 4, "ae.gather", *["ae.leaf", "ae.levels"] * 4,
+# The leaf hash, the diff (on a card beside the leaf hash and the levels),
+# the levels, then the wait for the diff.
+PHASES = ["ae.leaf", "ae.diff", "ae.levels", "ae.diff_wait"]
+# A key-mesh step of 4 shards: every shard's leaf hash, every shard's diff,
+# the masks' gather, every shard's seam and wait for its diff, then the
+# combine with the seam and the wait for the masks inside it.
+MESH_SPANS = ["ae.cycle", *["ae.leaf"] * 4, *["ae.diff"] * 4, "ae.gather",
+              *["ae.levels", "ae.diff_wait"] * 4,
               "ae.combine", "ae.seam", "ae.gather_wait"]
 
 
@@ -90,7 +93,7 @@ def test_on_records_the_cycle_and_its_phases(tmp_path):
     assert top["parent"] is None and top["root"] == top["id"]
     for s in recs[1:]:
         assert s["parent"] == top["id"] and s["root"] == top["id"]
-    assert len({s["id"] for s in recs}) == 4
+    assert len({s["id"] for s in recs}) == 1 + len(PHASES)
     times = [top["host_ns"][0]]
     for s in recs[1:]:
         times += list(s["host_ns"])
@@ -166,7 +169,7 @@ def test_the_seam_span_and_the_combine_counters():
 
 def test_the_gather_spans_and_the_combine_bytes():
     """The masks' gather is ``ae.gather`` after the last shard's diff and
-    before the first leaf hash, on the first device; the wait for it is
+    before the first seam, on the first device; the wait for it is
     ``ae.gather_wait`` inside ``ae.combine``, after ``ae.seam``. A step
     still counts the bytes of shards 1-3's seams, masks and counts, and
     the masks it returns are one contiguous [R, N] tensor equal to the
@@ -189,11 +192,53 @@ def test_the_gather_spans_and_the_combine_bytes():
                                                     "ae.combine"))
     assert gather["parent"] == cycle["id"] and gather["device"] == cycle["device"]
     last_diff = [s for s in recs if s["name"] == "ae.diff"][-1]["host_ns"][1]
-    first_leaf = next(s for s in recs if s["name"] == "ae.leaf")["host_ns"][0]
-    assert last_diff <= gather["host_ns"][0] <= gather["host_ns"][1] <= first_leaf
+    first_seam = next(s for s in recs if s["name"] == "ae.levels")["host_ns"][0]
+    assert last_diff <= gather["host_ns"][0] <= gather["host_ns"][1] <= first_seam
     assert wait["parent"] == combine["id"] and wait["device"] == combine["device"]
     assert by["ae.seam"]["host_ns"][1] <= wait["host_ns"][0] <= wait["host_ns"][1]
     assert wait["host_ns"][1] <= combine["host_ns"][1]
+
+
+@pytest.mark.parametrize("where", ["one_device", "mesh"])
+def test_the_diff_wait_lies_in_the_cycle_after_the_levels(where):
+    """Under a session each diff's wait is one ``ae.diff_wait`` in
+    ``ae.cycle`` on the diff's device, after that device's ``ae.levels``
+    (on a mesh each shard's, before ``ae.combine``): one wait a diff."""
+    args = _inputs(n=24)
+    with profile(activities=[ProfilerActivity.CPU]):
+        if where == "mesh":
+            step = sharded_merkle.make_anti_entropy_step(make_mesh({"key": 4}, devices=[CPU] * 4))
+            step(*args)
+        else:
+            te.anti_entropy_forward(*args, device=CPU)
+    recs = tracing.device_spans()
+    cycle = recs[0]
+    diffs = [s for s in recs if s["name"] == "ae.diff"]
+    waits = [s for s in recs if s["name"] == "ae.diff_wait"]
+    levels = [s for s in recs if s["name"] == "ae.levels"]
+    assert cycle["name"] == "ae.cycle" and len(waits) == len(diffs) == len(levels) >= 1
+    for wait, level in zip(waits, levels):
+        assert wait["parent"] == cycle["id"] and wait["device"] == level["device"]
+        assert level["host_ns"][1] <= wait["host_ns"][0] <= wait["host_ns"][1]
+        assert wait["host_ns"][1] <= cycle["host_ns"][1]
+    combine = [s for s in recs if s["name"] == "ae.combine"]
+    if combine:
+        assert waits[-1]["host_ns"][1] <= combine[0]["host_ns"][0]
+
+
+def test_no_diff_runs_beside_on_the_cpu():
+    """``device.ae_diff_overlapped`` counts diffs that ran on a card's side
+    stream: on the CPU the step runs in turn and counts none."""
+    def overlapped():
+        return tracing.get_metrics().snapshot()["counters"].get("device.ae_diff_overlapped", 0)
+
+    before = overlapped()
+    args = _inputs()
+    te.anti_entropy_forward(*args, device=CPU)
+    sharded_merkle.make_anti_entropy_step(make_mesh({"key": 4}, devices=[CPU] * 4))(*args)
+    with profile(activities=[ProfilerActivity.CPU]):
+        te.anti_entropy_forward(*args, device=CPU)
+    assert overlapped() == before
 
 
 def test_no_span_outside_the_cycle():

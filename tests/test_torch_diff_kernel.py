@@ -109,6 +109,11 @@ extern "C" void host_divergence(const uint32_t* digests, int64_t digest_stride,
     }
   }
 }
+extern "C" int64_t host_diff_grid(int64_t n, int sms, int resident, int beside) {
+  return mkv_diff_grid(n, sms, resident, beside != 0);
+}
+extern "C" int host_diff_threads(int beside) { return mkv_diff_threads(beside != 0); }
+extern "C" int host_diff_beside_blocks() { return kMkvDiffBesideBlocks; }
 """
 
 
@@ -131,6 +136,12 @@ def tile_lib(tmp_path_factory):
     lib.host_half_differs.restype = ctypes.c_int
     lib.host_divergence.argtypes = [ptr, i64, ptr, i64, ptr, ptr, i64, i32]
     lib.host_divergence.restype = None
+    lib.host_diff_grid.argtypes = [i64, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.host_diff_grid.restype = i64
+    lib.host_diff_threads.argtypes = [ctypes.c_int]
+    lib.host_diff_threads.restype = ctypes.c_int
+    lib.host_diff_beside_blocks.argtypes = []
+    lib.host_diff_beside_blocks.restype = ctypes.c_int
     return lib
 
 
@@ -232,6 +243,74 @@ def test_host_launch_finds_one_word_in_each_position(tile_lib):
     masks, counts = host_divergence(tile_lib, dig, pres)
     assert masks[1].tolist() == [True] * 16 + [False]
     assert counts.tolist() == [0, 16]
+
+
+# ------------------------------------------------------------ the launch shapes
+
+# One SM, then the SMs of an L4, an A100, an H100 PCIe and an H100 SXM.
+GRID_SMS = (1, 58, 108, 114, 132)
+GRID_KEYS = (1, 127, 128, 129, 4097, 8192 * 132 + 5, 10_000_000, 16_500_000)
+
+
+def _tiles(n):
+    return -(-n // 128)
+
+
+@pytest.mark.parametrize("sms", GRID_SMS)
+@pytest.mark.parametrize("n", GRID_KEYS)
+def test_standalone_grid_is_the_blocks_the_card_holds(tile_lib, sms, n):
+    """The standalone launch keeps its grid: 256-thread blocks, the
+    occupancy calculator's count an SM (at least 1) times the SMs, never
+    more than the tiles need at 8 warps a block."""
+    assert tile_lib.host_diff_threads(0) == 256
+    for resident in (0, 1, 2, 3):
+        want = min(-(-_tiles(n) // 8), sms * max(resident, 1))
+        assert tile_lib.host_diff_grid(n, sms, resident, 0) == want
+
+
+@pytest.mark.parametrize("sms", GRID_SMS)
+@pytest.mark.parametrize("n", GRID_KEYS)
+def test_coresident_grid_takes_its_blocks_an_sm_and_covers_every_tile(tile_lib, sms, n):
+    """The co-resident grid is one block of 128 threads an SM whatever the
+    card holds (the occupancy count is not read), fewer only where the
+    tiles need fewer; the kernel's warps, striding by the grid's warp count
+    from block b's warp w at tile b * warps + w, visit every tile once."""
+    per_sm, threads = tile_lib.host_diff_beside_blocks(), tile_lib.host_diff_threads(1)
+    assert (per_sm, threads) == (1, 128)
+    warps = threads // 32
+    grid = tile_lib.host_diff_grid(n, sms, 5, 1)
+    assert grid == tile_lib.host_diff_grid(n, sms, 0, 1)
+    assert grid == min(-(-_tiles(n) // warps), sms * per_sm) and grid >= 1
+    seen = np.zeros(_tiles(n), np.int64)
+    for first in range(grid * warps):
+        seen[first::grid * warps] += 1
+    assert (seen == 1).all()
+
+
+def test_the_steps_shape_is_one_the_kernel_takes(tile_lib):
+    """The co-resident block is whole warps, within the kernel's
+    ``__launch_bounds__`` (the standalone block), and leaves the SM room."""
+    threads = tile_lib.host_diff_threads(1)
+    assert threads % 32 == 0 and 32 <= threads <= tile_lib.host_diff_threads(0)
+    assert 1 <= tile_lib.host_diff_beside_blocks() and \
+        tile_lib.host_diff_beside_blocks() * threads <= tile_lib.host_diff_threads(0)
+
+
+def test_the_coresident_launch_takes_cuda_tensors_only(monkeypatch):
+    """``divergence_beside`` has no plain version: CPU tensors, or outputs
+    on another device than the inputs, are refused before the library is
+    built."""
+    def refuse():
+        raise AssertionError("a refused call reached the kernel library")
+
+    monkeypatch.setattr(cuda_lib, "build_kernels", refuse)
+    dig, pres = one_word_cases()
+    d, p = torch.from_numpy(dig.view(np.int32)), torch.from_numpy(pres)
+    masks, counts = torch.empty((2, 17), dtype=torch.bool), torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        dispatch.divergence_beside(d, p, masks, counts)
+    with pytest.raises(ValueError):
+        dispatch.divergence_beside(d, p, masks.to("meta"), counts)
 
 
 # ------------------------------------------------------------ the CPU route
