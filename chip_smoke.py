@@ -91,6 +91,15 @@ Phases, one line each (an uncaught failure exits nonzero):
               ``diff_beside``, the co-resident grid the anti-entropy step
               runs beside the leaf hash, timed alone; both are checked
               bit for bit in phase 2 and count the one entry's launches.
+              The ragged leaf hash (``leaf_ragged``: ``chain_kernel`` and
+              ``bulk_kernel``, one entry) is checked in phase 2 against
+              ``hashlib`` and its plain version on a few hundred leaves of
+              0 to 260 KB, and here on a set of ``ETC_KEYS`` leaves at
+              Facebook's ETC record sizes (``etc_ragged_set``) against its
+              plain version, bit for bit, after phase 13 (a); its device
+              time runs from the first kernel's start to the last one's
+              end, and its bound counts a compression a block and 64 B a
+              block, 8 B an offset and 32 B a digest.
 8. node     — the node entry, at 1M keys (config 4) and only through what a
               user runs. 8a: ``python -m merklekv_tpu_torch`` spawned with
               replication on the in-process bus and anti-entropy engine
@@ -343,9 +352,19 @@ ADDS_NODE = ADDS_MSG_BLOCK + ADDS_PAD_BLOCK
 CHAIN_RUNS = 200
 # The pairs kernel's sizes in the [times] sweep; None is 4 x 32 x SMs.
 PAIRS_SWEEP = (64, 512, 4096, None, 65536, 5 * (1 << 20))
-# Kernels the main path (phases 3 to 6 and 8) must launch; node_pairs is held
-# against its plain version in phase 2 but no longer runs on the main path.
-MAIN_PATH_KERNELS = ("leaf", "node_level", "path_rehash", "promotion_chain")
+# Kernels the main path (phases 3 to 6 and 8 to 12) must launch; node_pairs
+# is held against its plain version in phase 2 but no longer runs on the main
+# path. The node's leaf maps and snapshot roots hash ragged (leaf_ragged); the
+# serving tree and the ladder's builds (phase 13 b) pack padded.
+MAIN_PATH_KERNELS = ("leaf", "node_level", "path_rehash", "promotion_chain", "leaf_ragged")
+LADDER_KERNELS = ("leaf", "node_level", "path_rehash", "promotion_chain")
+# The kernels line's ragged set: config 3's key count at the record sizes of
+# Facebook's memcached ETC pool (Atikoglu et al., SIGMETRICS 2012): keys a
+# generalized extreme value fit (mu, sigma, k), at least 10 bytes; values a
+# generalized Pareto fit (theta, sigma, k), at most 1 MiB.
+ETC_KEYS = REBUILD_KEYS
+ETC_KEY_GEV = (30.7984, 8.20449, 0.078688)
+ETC_VALUE_GPD = (0.0, 214.476, 0.348238)
 # A kernels-line row whose launches are counted under another entry's key
 # (ops/cuda_lib.py's LAUNCHES counts an entry's launches in any grid).
 LAUNCH_KEY = {"diff_beside": "diff"}
@@ -488,6 +507,66 @@ def profiled_again(fn, kernel: str, reps: int) -> tuple[float, int]:
         return profiled_kernel_ms(fn, kernel, reps)
 
 
+def profiled_launch_ms(fn, kernels: tuple, reps: int, warmup: int = 2) -> tuple[float, int]:
+    """Mean device time per call of ``fn`` from its first kernel's start to
+    its last one's end (torch.profiler), for a launch of the kernels named
+    in ``kernels`` that overlap on the card, as the ragged leaf hash's two
+    halves do; and the number of calls timed. A call's kernels run from one
+    named ``kernels[0]`` to the next; a call the profiler kept fewer
+    records of is left out, and one call at least must be whole."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    pats = [re.compile(rf"(^|[^\w]){k}\b") for k in kernels]
+    for _ in range(warmup):
+        fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        sync()
+    events = sorted((ev.time_range.start, ev.time_range.end, ev.name) for ev in prof.events()
+                    if ev.device_type == DeviceType.CUDA and any(p.search(ev.name) for p in pats))
+    calls: list = []
+    for start, end, name in events:
+        if pats[0].search(name) or not calls:
+            calls.append([])
+        calls[-1].append((start, end))
+    spans = [max(e for _, e in c) - min(b for b, _ in c) for c in calls if len(c) == len(kernels)]
+    if not 0 < len(spans) <= reps:
+        raise AssertionError(f"profiler kept {len(spans)} whole calls of {kernels}, expected {reps}")
+    return sum(spans) / len(spans) / 1e3, len(spans)
+
+
+def etc_ragged_set(dev, rng: np.random.Generator, n: int = ETC_KEYS):
+    """A ragged leaf set (``merkle.ragged.RaggedLeaves``) of ``n`` leaves at
+    ETC record sizes: each key's and value's size the fit's quantile at
+    (i + 0.5) / n, floored and clipped, in an order drawn from ``rng``; each
+    leaf's blocks the padded message of that size would take. The words are
+    random (the kernel hashes the blocks it is given; its plain version is
+    held to ``hashlib`` in phase 2 and the tests)."""
+    import torch
+
+    from merklekv_tpu_torch.merkle.ragged import RaggedLeaves
+
+    p = (np.arange(n, dtype=np.float64) + 0.5) / n
+    mu, sigma, k = ETC_KEY_GEV
+    keys = np.maximum(np.floor(mu + sigma / k * ((-np.log(p)) ** -k - 1)), 10)
+    theta, sigma, k = ETC_VALUE_GPD
+    values = np.clip(np.floor(theta + sigma / k * ((1 - p) ** -k - 1)), 0, 1 << 20)
+    counts = (8 + rng.permutation(keys).astype(np.int64)
+              + rng.permutation(values).astype(np.int64) + 9 + 63) // 64
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=offsets[1:])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(rng.integers(1 << 62)))
+    blocks = torch.randint(-(2**31), 2**31 - 1, (int(offsets[-1]), 16), dtype=torch.int32,
+                           device=dev, generator=gen)
+    return RaggedLeaves(blocks, torch.from_numpy(offsets).to(dev))
+
+
 def path_kernel_ms(levels, scratch, blocks, nblocks, pos, reps: int) -> float:
     """Device ms per launch of the path-rehash kernel alone: CUDA events
     around ``reps`` back-to-back launches through the library's entry point
@@ -582,11 +661,13 @@ def phase_kernels(dev, rng: np.random.Generator, sizes=(1, 2, 3, 4097, 1 << 20))
     from merklekv_tpu_torch.ops import sha256 as plain
     from merklekv_tpu_torch.ops.sha256_cuda import (
         leaf_digests_cuda,
+        leaf_ragged_cuda,
         node_level_cuda,
         node_pairs_cuda,
     )
 
-    errs = {"leaf": 0, "node_level": 0, "node_pairs": 0, "diff": 0, "diff_beside": 0}
+    errs = {"leaf": 0, "leaf_ragged": 0, "node_level": 0, "node_pairs": 0, "diff": 0,
+            "diff_beside": 0}
     checks = 0
 
     def hold(name, got, want, what):
@@ -653,6 +734,22 @@ def phase_kernels(dev, rng: np.random.Generator, sizes=(1, 2, 3, 4097, 1 << 20))
     want = [leaf_hash(k, v) for k, v in zip(keys, vals)]
     if plain.digests_to_bytes(got.cpu().numpy().view(np.uint32)) != want:
         raise AssertionError("leaf kernel differs from hashlib")
+    # The ragged leaf hash: leaves of 0..2000 bytes and a few of 50 to 260
+    # KB, so that the longest run in chain_kernel beside the bulk.
+    from merklekv_tpu_torch.merkle.ragged import RaggedLeaves
+
+    sizes_v = [int(x) for x in rng.integers(0, 2000, 400)] + [50_000, 120_000, 260_000]
+    keys_r = [rng.bytes(int(rng.integers(0, 60))) for _ in sizes_v]
+    vals_r = [rng.bytes(m) for m in sizes_v]
+    rs = RaggedLeaves.pack(keys_r, vals_r, dev)
+    if rs.chained < 1:
+        raise AssertionError(f"the ragged check set runs no chain: {rs.longest} blocks longest")
+    got_r = leaf_ragged_cuda(rs.blocks, rs.offsets, rs.order, rs.chained)
+    hold("leaf_ragged", got_r, plain.sha256_ragged(rs.blocks, rs.offsets),
+         f"{rs.n} leaves, {rs.total_blocks} blocks, {rs.chained} chained")
+    if plain.digests_to_bytes(got_r.cpu().numpy().view(np.uint32)) != [
+            leaf_hash(k, v) for k, v in zip(keys_r, vals_r)]:
+        raise AssertionError("ragged leaf hash differs from hashlib")
     cur = got[:256].contiguous()
     lv = plain.digests_to_bytes(node_level_cuda(cur).cpu().numpy().view(np.uint32))
     if lv != [node_hash(want[2 * i], want[2 * i + 1]) for i in range(128)]:
@@ -663,8 +760,8 @@ def phase_kernels(dev, rng: np.random.Generator, sizes=(1, 2, 3, 4097, 1 << 20))
         raise AssertionError("node_pairs kernel differs from hashlib")
     sync()
     log(f"[kernels] {checks} shape checks bit-exact vs plain on the card, "
-        f"300 leaves + 278 nodes and 3 pairs of each pairs size exact vs hashlib "
-        f"(tolerance: exact equality)")
+        f"300 leaves + {len(sizes_v)} ragged leaves ({rs.chained} chained) + 278 nodes and 3 "
+        f"pairs of each pairs size exact vs hashlib (tolerance: exact equality)")
     return {"max_abs_err": errs}
 
 
@@ -1450,7 +1547,7 @@ def phase_surface(dev, seed: int, n_tree: int = TREE_KEYS, batch: int = BATCH) -
         ladder.append({"fault": fault, "rung": rung, "steps": steps, "build_s": build_s})
         del state
     launches = dict(LAUNCHES)
-    if min(launches[k] for k in MAIN_PATH_KERNELS) < 1:
+    if min(launches[k] for k in LADDER_KERNELS) < 1:
         raise AssertionError(f"the ladder builds missed a main-path kernel: {launches}")
     wall_s = time.perf_counter() - t_phase
     log(f"[surface] (b) build_state_with_ladder, top_shards {top} over "
@@ -2162,8 +2259,8 @@ def phase_node_sync(seed: int, n_keys: int = NODE_KEYS, batch: int = BATCH,
             if found != injected:
                 raise AssertionError(f"SYNC found {found} divergent keys in {cycles}, "
                                      f"injected {injected}")
-            if sync_launches["leaf"] < len(cycles):
-                raise AssertionError(f"the SYNC leaf passes did not run the leaf kernel: "
+            if sync_launches["leaf_ragged"] < len(cycles):
+                raise AssertionError(f"the SYNC leaf passes did not run the ragged leaf kernel: "
                                      f"{sync_launches}")
             if not cb.replicate("enable"):
                 raise AssertionError("REPLICATE enable on B failed")
@@ -2208,9 +2305,9 @@ def phase_node_sync(seed: int, n_keys: int = NODE_KEYS, batch: int = BATCH,
             if mrep.per_peer_divergent != want or mrep.union_keys < _DEVICE_THRESHOLD:
                 raise AssertionError(f"multi-sync divergence {mrep.per_peer_divergent} over "
                                      f"{mrep.union_keys} keys, injected {want}")
-            if multi_launches["leaf"] < 1:
-                raise AssertionError(f"the multi-sync leaf pass did not run the leaf kernel: "
-                                     f"{multi_launches}")
+            if multi_launches["leaf_ragged"] < 1:
+                raise AssertionError(f"the multi-sync leaf pass did not run the ragged leaf "
+                                     f"kernel: {multi_launches}")
         finally:
             for r in runs:
                 r.close()
@@ -2396,7 +2493,7 @@ def phase_durable(seed: int, n_keys: int = DURABLE_KEYS, batch: int = BATCH) -> 
             snapmod.compute_root_hex = real
         launches = dict(LAUNCHES)
     for what, got in (("the recovery check", at_recovery), ("the forced snapshot", at_snapshot)):
-        if got["leaf"] != 1 or got["node_level"] < 1:
+        if got["leaf_ragged"] != 1 or got["node_level"] < 1:
             raise AssertionError(f"{what} did not hash on the card: {got}")
     fallbacks = _counters().get("device.fallbacks", 0) - base.get("device.fallbacks", 0)
     if fallbacks:
@@ -2764,7 +2861,7 @@ def phase_partitions(seed: int, n_keys: int = PART_KEYS, batch: int = BATCH,
                 time.sleep(0.05)
             boot_serve_s = time.perf_counter() - t
             at_serve = pc_.launches("b1")  # before any HASH warms its mirror
-            if at_serve["leaf"] < 1 or at_serve["node_level"] < 1:
+            if at_serve["leaf_ragged"] < 1 or at_serve["node_level"] < 1:
                 raise AssertionError(f"the snapshot was not verified on the card: {at_serve}")
             _await_roots({"b1": (ports["b1"], 1), "a1": (ports["a1"], 1)}, want, 600,
                          "(c) after the bootstrap")
@@ -2851,7 +2948,7 @@ def phase_partitions(seed: int, n_keys: int = PART_KEYS, batch: int = BATCH,
             after = {n: pc_.launches(n) for n in ("a0", "r")}
             split_launches = {n: {k: after[n][k] - before[n][k] for k in after[n]} for n in after}
             for n, got in split_launches.items():
-                if got["leaf"] < 2 or got["node_level"] < 2:
+                if got["leaf_ragged"] < 2 or got["node_level"] < 2:
                     raise AssertionError(f"{n}'s range and snapshot roots were not hashed on the "
                                          f"card: {got}")
             pid_of["r"] = 2
@@ -3326,6 +3423,52 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
     return out
 
 
+def ragged_kernel_row(dev, rng: np.random.Generator, errs: dict, launches: dict) -> dict:
+    """The kernels line's ``leaf_ragged`` row, measured after every other
+    profiler session of the script: its plain version makes millions of
+    small launches (about 50 s a call), and after three of them the later
+    sessions (``device_profile``, phase 13 a) kept too few kernel records
+    (torch 2.11, one H100 run). So the plain version runs once, as the
+    check, and its wall time is the row's plain ms."""
+    from merklekv_tpu_torch.ops import sha256 as plain
+    from merklekv_tpu_torch.ops.sha256_cuda import leaf_ragged_cuda
+
+    etc = etc_ragged_set(dev, rng)
+    got = leaf_ragged_cuda(etc.blocks, etc.offsets, etc.order, etc.chained)
+    sync()
+    t = time.perf_counter()
+    want = plain.sha256_ragged(etc.blocks, etc.offsets)
+    sync()
+    plain_ms = 1e3 * (time.perf_counter() - t)
+    err = u32_max_abs_err(got, want)
+    errs["leaf_ragged"] = max(errs["leaf_ragged"], err)
+    if err:
+        raise AssertionError(f"ragged leaf hash differs from its plain version on the ETC set: {err}")
+    del got, want
+
+    def kern():
+        return leaf_ragged_cuda(etc.blocks, etc.offsets, etc.order, etc.chained)
+
+    ms, seen = profiled_launch_ms(kern, ("chain_kernel", "bulk_kernel"), 10)
+    call_ms = event_ms(kern, 10)
+    t_blocks = etc.total_blocks
+    nbytes = t_blocks * 64 + (etc.n + 1) * 8 + etc.n * 32
+    logic, adds = t_blocks * LOGIC_MSG_BLOCK, t_blocks * ADDS_MSG_BLOCK
+    b_ms, by = bound_ms(nbytes, logic, adds), bound_by(nbytes, logic, adds)
+    log(f"[times] leaf_ragged at {etc.n} ETC leaves, {t_blocks} blocks, longest {etc.longest}, "
+        f"{etc.chained} chained, lane fill {100 * t_blocks / etc.lane_slots:.4f}%: == plain bit "
+        f"for bit; device {ms:.4f} ms per launch, first kernel's start to last one's end ({seen} "
+        f"of 10 launches profiled; back-to-back calls {call_ms:.4f} ms; plain {plain_ms:.3f} ms; "
+        f"bound {b_ms:.4f} ms by {by}: {nbytes} B, {logic} shift/logic + {adds} add ops)")
+    return {
+        "name": "leaf_ragged", "route": "cuda", "source": "merklekv_tpu_torch/csrc/ragged_leaves.cu",
+        "replaces": "none: the JAX package pads every leaf to the longest",
+        "launches": launches["leaf_ragged"], "max_abs_err": errs["leaf_ragged"],
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+        "library_ms": None, "serial_floor_ms": None,
+    }
+
+
 def node_pairs_sweep(dev, rng: np.random.Generator, floor_ms: float) -> list:
     """The pairs kernel's device time per launch (torch.profiler) at each P
     of PAIRS_SWEEP (None: 4 x 32 x SMs, the widest launch that keeps one warp
@@ -3466,6 +3609,13 @@ def main() -> int:
     log("[launches] " + "; ".join(f"{name} {ph['launches']}" for name, ph in phases.items()))
     log_path_ks(ks)
     kernels = phase_kernel_times(dev, rng, reb["blocks"], reb["nblocks"], errs, launches)
+    device_profile("rebuild+diff 10M x 8", reb.pop("forward"), 3)
+    batch = srv.pop("batch")
+    prof = device_profile("serving batch of 4096 + root read", batch, 5)
+    sfc_prof = phase_profile(dev, args.seed, sfc["root"])
+    del reb["blocks"], reb["nblocks"], batch
+    torch.cuda.empty_cache()
+    kernels.append(ragged_kernel_row(dev, rng, errs, launches))
     for k in kernels:
         key = LAUNCH_KEY.get(k["name"], k["name"])
         k["launches_node"] = node["launches"][key]
@@ -3473,10 +3623,6 @@ def main() -> int:
         k["launches_durable"] = dur["launches"][key]
         k["launches_multihost"] = mh["launches"][key]
         k["launches_partitions"] = part["launches"][key]
-    device_profile("rebuild+diff 10M x 8", reb.pop("forward"), 3)
-    batch = srv.pop("batch")
-    prof = device_profile("serving batch of 4096 + root read", batch, 5)
-    sfc_prof = phase_profile(dev, args.seed, sfc["root"])
     log(f"[summary] rebuild+diff 10M x 8: {reb['median_s'] * 1e3:.3f} ms, "
         f"{reb['keys_per_s']:.0f} keys/s; serving 1M: {srv['writes_per_s']:.0f} writes/s "
         f"(guarded), {prof['device_ms']:.4f} ms device and {prof['kernels']:.1f} kernel "

@@ -23,13 +23,14 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from merklekv_tpu_torch.merkle.packing import pack_leaves
+from merklekv_tpu_torch.merkle.ragged import RaggedLeaves
 from merklekv_tpu_torch.ops.dispatch import (
     build_levels,
     divergence,
     divergence_beside,
     hash_blocks,
     hash_node_level,
+    hash_ragged,
 )
 from merklekv_tpu_torch.ops.sha256 import digest_to_bytes, digests_to_bytes
 from merklekv_tpu_torch.utils.torchenv import as_tensor, resolve_device, words_np
@@ -37,6 +38,7 @@ from merklekv_tpu_torch.utils.tracing import device_span, get_metrics
 
 __all__ = [
     "leaf_digests",
+    "ragged_digests",
     "build_levels_device",
     "tree_root",
     "tree_root_capacity",
@@ -53,7 +55,10 @@ def anti_entropy_forward(blocks, nblocks, digests, present, device=None):
 
     blocks [N, B, 16] u32, nblocks [N] i32, digests [R, N, 8] u32,
     present [R, N] bool — numpy arrays or tensors (uint32 words as int32
-    tensors) — moved to ``device`` (``None`` = CUDA).
+    tensors) — moved to ``device`` (``None`` = CUDA). In place of the padded
+    ``(blocks, nblocks)``, ``blocks`` may be a ragged leaf set on ``device``
+    (:class:`merkle.ragged.RaggedLeaves`) with ``nblocks`` None: its leaves
+    are hashed by :func:`ragged_digests`.
     Returns (root [8] int32, masks [R, N] bool, counts [R] int32) on device.
 
     On a card the diff runs beside the leaf hash and the levels
@@ -74,7 +79,10 @@ def anti_entropy_forward(blocks, nblocks, digests, present, device=None):
     with device_span("ae.cycle", dev):
         diff = DiffBeside(dev, as_tensor(digests, dev), as_tensor(present, dev, torch.bool))
         with device_span("ae.leaf", dev):
-            leaves = hash_blocks(as_tensor(blocks, dev), as_tensor(nblocks, dev))
+            if isinstance(blocks, RaggedLeaves):
+                leaves = ragged_digests(blocks)
+            else:
+                leaves = hash_blocks(as_tensor(blocks, dev), as_tensor(nblocks, dev))
         diff.start()
         with device_span("ae.levels", dev):
             root = build_levels(leaves)[-1][0]
@@ -154,12 +162,21 @@ class DiffBeside:
 
 def leaf_digests(keys: Sequence[bytes], values: Sequence[bytes], device=None) -> torch.Tensor:
     """[N, 8] int32 leaf digests for N (key, value) pairs, hashed on
-    ``device`` (``None`` = CUDA). Packing runs on the host."""
-    dev = resolve_device(device)
-    packed = pack_leaves(list(keys), list(values))
-    if packed.n == 0:
-        return torch.zeros((0, 8), dtype=torch.int32, device=dev)
-    return hash_blocks(as_tensor(packed.blocks, dev), as_tensor(packed.nblocks, dev))
+    ``device`` (``None`` = CUDA). Packing runs on the host, ragged: each
+    leaf at its own block count (``merkle/ragged.py``)."""
+    return ragged_digests(RaggedLeaves.pack(list(keys), list(values), resolve_device(device)))
+
+
+def ragged_digests(leaves: RaggedLeaves) -> torch.Tensor:
+    """[N, 8] int32 digests of a ragged leaf set, in key order, on its
+    device (``ops.dispatch.hash_ragged``). Each call adds the set's
+    compressions to the counter ``device.ae_leaf_blocks`` and its lane slots
+    (32 lanes times each warp's longest leaf) to ``device.ae_leaf_lane_slots``:
+    numbers the set computed when it was made. Their ratio is the lane fill."""
+    metrics = get_metrics()
+    metrics.inc("device.ae_leaf_blocks", leaves.total_blocks)
+    metrics.inc("device.ae_leaf_lane_slots", leaves.lane_slots)
+    return hash_ragged(leaves)
 
 
 # ------------------------------------------------------------ static build

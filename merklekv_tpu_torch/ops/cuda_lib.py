@@ -92,8 +92,11 @@ class Entry(NamedTuple):
 
 
 _p, _i64, _i32, _lv = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32, ctypes.POINTER(MkvLevels)
+_pi32 = ctypes.POINTER(ctypes.c_int32)
 ENTRIES = {
     "mkv_leaf_digests": Entry("leaf", [_p, _p, _p, _i64, _i32]),
+    "mkv_leaf_ragged": Entry("leaf_ragged", [_p, _p, _p, _p, _i64, _i64]),
+    "mkv_ragged_shape": Entry(None, [_pi32, _pi32]),
     "mkv_node_level": Entry("node_level", [_p, _p, _i64]),
     "mkv_node_pairs": Entry("node_pairs", [_p, _p, _p, _i64]),
     "mkv_path_rehash": Entry("path_rehash", [_lv, _p, _p, _p, _i32, _i32, _i32, _i32, _p]),

@@ -2,10 +2,10 @@
 PyTorch versions for CPU tensors.
 
 Counterpart of ``merklekv_tpu/ops/dispatch.py``. Every hashing site of the
-torch package (leaf digests, the static tree build, the serving tree's
-path rehash, promotion chain and restructure) routes through these
-functions, and so does the N-replica diff (``divergence``), which the JAX
-package left to XLA's fusion.
+torch package (leaf digests, padded or ragged, the static tree build, the
+serving tree's path rehash, promotion chain and restructure) routes through
+these functions, and so does the N-replica diff (``divergence``), which the
+JAX package left to XLA's fusion.
 
 Policy: the tensor's device decides, and nothing else. The functions here
 only forward: each wrapper (``ops/sha256_cuda.py``, ``ops/merkle_paths.py``,
@@ -31,12 +31,14 @@ from merklekv_tpu_torch.ops.merkle_paths import (
 )
 from merklekv_tpu_torch.ops.sha256_cuda import (
     leaf_digests_cuda,
+    leaf_ragged_cuda,
     node_level_cuda,
     node_pairs_cuda,
 )
 
 __all__ = [
     "hash_blocks",
+    "hash_ragged",
     "hash_node_pairs",
     "hash_node_level",
     "build_levels",
@@ -51,6 +53,13 @@ __all__ = [
 def hash_blocks(blocks: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
     """[N, B, 16] int32 padded blocks + [N] int32 valid counts -> [N, 8]."""
     return leaf_digests_cuda(blocks, nblocks)
+
+
+def hash_ragged(leaves) -> torch.Tensor:
+    """A ragged leaf set (``merkle.ragged.RaggedLeaves``: ``blocks`` [T, 16]
+    int32, ``offsets`` [N + 1] int64, the schedule ``order`` and
+    ``chained``) -> [N, 8] digests in key order."""
+    return leaf_ragged_cuda(leaves.blocks, leaves.offsets, leaves.order, leaves.chained)
 
 
 def hash_node_pairs(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:

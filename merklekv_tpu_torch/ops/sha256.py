@@ -30,6 +30,7 @@ import torch
 
 __all__ = [
     "sha256_blocks",
+    "sha256_ragged",
     "sha256_node_pairs",
     "sha256_node_level",
     "sha256_single_block",
@@ -95,6 +96,7 @@ def _const_kw(block16) -> list[int]:
 
 
 _K_S32 = [_s32(k) for k in _K]
+_K_INT = [int(k) for k in _K]
 _IV_S32 = [_s32(v) for v in _IV]
 _NODE_PAD_KW = _const_kw(_NODE_PAD_BLOCK)
 _NODE_PAD_KW_S32 = [_s32(v) for v in _NODE_PAD_KW]
@@ -178,6 +180,72 @@ def sha256_blocks(blocks: torch.Tensor, nblocks: torch.Tensor) -> torch.Tensor:
         keep = nblocks > b
         state = [torch.where(keep, ns, s) for ns, s in zip(new_state, state)]
     return torch.stack(state, dim=1)
+
+
+# Below this many messages still compressing, ``sha256_ragged`` finishes
+# them one at a time on Python integers: a step of whole-tensor operations
+# over a few rows costs more than their rounds.
+_RAGGED_FEW = 32
+
+
+def sha256_ragged(blocks: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Batched SHA-256 over ragged padded messages.
+
+    blocks:  [T, 16] int32 — message i pre-padded into
+             ``blocks[offsets[i]:offsets[i + 1]]``.
+    offsets: [N + 1] int64, non-decreasing, ``offsets[0] == 0``. A message
+             of no blocks keeps the IV.
+    Returns: [N, 8] int32 digests in message order.
+
+    The messages run longest first, in lockstep: step b compresses block b
+    of every message with more than b blocks (a prefix of that order), the
+    same work the ragged kernel does, lane by lane. Once fewer than
+    ``_RAGGED_FEW`` are left, each finishes alone on Python integers.
+    """
+    _check_words(blocks, "blocks")
+    n = offsets.shape[0] - 1
+    lengths = offsets[1:] - offsets[:-1]
+    order = torch.argsort(lengths, descending=True, stable=True)
+    starts, lens = offsets[:-1][order], lengths[order]
+    state = torch.tensor([_IV_S32] * n, dtype=torch.int32, device=blocks.device).reshape(n, 8)
+    b = 0
+    while True:
+        active = int((lens > b).sum())
+        if active < _RAGGED_FEW:
+            break
+        rows = blocks[starts[:active] + b]
+        new = _compress([state[:active, i] for i in range(8)], [rows[:, i] for i in range(16)])
+        state[:active] = torch.stack(new, dim=1)
+        b += 1
+    for j in range(active):
+        s = [x & _MASK32 for x in state[j].tolist()]
+        lo, hi = int(starts[j]) + b, int(starts[j] + lens[j])
+        for w in blocks[lo:hi].tolist():
+            s = _compress_int(s, [x & _MASK32 for x in w])
+        state[j] = torch.tensor([_s32(x) for x in s], dtype=torch.int32)
+    out = torch.empty_like(state)
+    out[order] = state
+    return out
+
+
+def _compress_int(state: list[int], block: list[int]) -> list[int]:
+    """One compression on Python integers (uint32 values): ``_compress``
+    for a single message."""
+    m = _MASK32
+    w = list(block)
+    for t in range(16, 64):
+        x15, x2 = w[t - 15], w[t - 2]
+        s0 = ((x15 >> 7) | (x15 << 25)) ^ ((x15 >> 18) | (x15 << 14)) ^ (x15 >> 3)
+        s1 = ((x2 >> 17) | (x2 << 15)) ^ ((x2 >> 19) | (x2 << 13)) ^ (x2 >> 10)
+        w.append((w[t - 16] + (s0 & m) + w[t - 7] + (s1 & m)) & m)
+    a, b, c, d, e, f, g, h = state
+    for t in range(64):
+        s1 = ((e >> 6) | (e << 26)) ^ ((e >> 11) | (e << 21)) ^ ((e >> 25) | (e << 7))
+        t1 = h + (s1 & m) + ((e & f) ^ (~e & g)) + _K_INT[t] + w[t]
+        s0 = ((a >> 2) | (a << 30)) ^ ((a >> 13) | (a << 19)) ^ ((a >> 22) | (a << 10))
+        t2 = (s0 & m) + ((a & b) ^ (a & c) ^ (b & c))
+        a, b, c, d, e, f, g, h = (t1 + t2) & m, a, b, c, (d + t1) & m, e, f, g
+    return [(x + y) & m for x, y in zip(state, (a, b, c, d, e, f, g, h))]
 
 
 def _node_hash_words(words: list, n: int, device) -> torch.Tensor:

@@ -18,6 +18,7 @@ import torch
 
 from merklekv_tpu_torch.device.guard import DispatchGuard
 from merklekv_tpu_torch.merkle import diff as tdiff
+from merklekv_tpu_torch.merkle import ragged
 from merklekv_tpu_torch.merkle import torch_engine as te
 from merklekv_tpu_torch.merkle.cpu_state import CpuMerkleState
 from merklekv_tpu_torch.merkle.incremental import DeviceMerkleState
@@ -430,7 +431,7 @@ def test_node_sync_runs_its_leaf_pass_on_the_card(dev, monkeypatch):
         fallbacks = int(cb.metrics().get("device.fallbacks", 0))  # the process's registry
         cl.reset_launch_counts()
         assert cb.sync_with("127.0.0.1", a.port)
-        assert cl.LAUNCHES["leaf"] >= 1
+        assert cl.LAUNCHES["leaf_ragged"] >= 1
         assert b.engine.snapshot() == a.engine.snapshot()
         assert cb.hash(force=True) == ca.hash(force=True)
         assert int(cb.metrics().get("device.fallbacks", 0)) == fallbacks
@@ -442,15 +443,15 @@ def test_node_sync_runs_its_leaf_pass_on_the_card(dev, monkeypatch):
 
 
 def test_snapshot_root_runs_the_kernels_on_the_card(dev, monkeypatch):
-    """``[storage]``'s snapshot root on the node's device: the leaf and
-    level kernels launch, and the root equals the host hashlib chain."""
+    """``[storage]``'s snapshot root on the node's device: the ragged leaf
+    and level kernels launch, and the root equals the host hashlib chain."""
     from merklekv_tpu_torch.storage import snapshot as snapmod
 
     monkeypatch.setenv("MERKLEKV_TORCH_DEVICE", "cuda")
     items = [(b"inc:%09d" % i, b"v%d" % i) for i in range(5000)]
     cl.reset_launch_counts()
     got = snapmod.compute_root_hex(items, engine="auto")
-    assert cl.LAUNCHES["leaf"] == 1 and cl.LAUNCHES["node_level"] >= 1
+    assert cl.LAUNCHES["leaf_ragged"] == 1 and cl.LAUNCHES["node_level"] >= 1
     assert got == snapmod.compute_root_hex(items, engine="cpu")
 
 
@@ -956,3 +957,97 @@ def test_the_diff_runs_under_the_leaf_hash(dev, tmp_path):
         ls, le = min(iv["leaf_kernel"], key=lambda x: abs(x[0] - ds))
         under.append(max(0.0, min(de, le) - max(ds, ls)) / (de - ds))
     assert len(under) >= 3 and sorted(under)[len(under) // 2] > 0.5, (under, iv)
+
+
+# ------------------------------------------------------------ ragged leaves
+
+def _ragged_records(case):
+    """(keys, values) of each ragged case: ETC-like sizes (key sizes about
+    36 bytes, value sizes a Pareto tail), messages ending on bytes 55 and 56
+    of a block, empty values, a 1 MiB value, and a set whose longest leaf is
+    over 3,000 blocks beside 60,000 short ones."""
+    rng = np.random.default_rng(len(case))
+    if case == "etc":
+        n = 20_000
+        vl = np.floor(214.476 / 0.348238 * ((1 - (np.arange(n) + 0.5) / n) ** -0.348238 - 1))
+        keys = [b"e%09d" % i + b"k" * int(rng.integers(0, 40)) for i in range(n)]
+        return keys, [bytes(rng.integers(0, 256, int(v), dtype=np.uint8)) for v in rng.permutation(vl)]
+    if case == "tails":
+        keys = [b"t%03d" % i for i in range(64)]
+        return keys, [b"v" * (64 * (i % 3) + 55 + i % 2 - 8 - len(k)) for i, k in enumerate(keys)]
+    if case == "empty_value":
+        return [b"a", b"bb", b"k" * 300], [b"", b"", b""]
+    if case == "one_mib":
+        return [b"big", b"small"], [bytes(range(256)) * 4096, b"x"]
+    keys = [b"c%06d" % i for i in range(60_001)]
+    values = [b"s" * int(rng.integers(0, 200)) for _ in keys]
+    values[777] = bytes(rng.integers(0, 256, 200_000, dtype=np.uint8))
+    return keys, values
+
+
+def _leaf_golden(keys, values):
+    return [hashlib.sha256(len(k).to_bytes(4, "big") + k + len(v).to_bytes(4, "big") + v).digest()
+            for k, v in zip(keys, values)]
+
+
+@pytest.mark.parametrize("case", ["etc", "tails", "empty_value", "one_mib", "long_chain"])
+def test_ragged_kernel_matches_hashlib(dev, case):
+    """One launch a hash; the rows come back in key order; the next reader on
+    the stream sees every chain's digest (it waits for the chain kernel)."""
+    keys, values = _ragged_records(case)
+    leaves = ragged.RaggedLeaves.pack(keys, values, dev)
+    if case == "long_chain":
+        assert leaves.longest > 3000 and leaves.chained >= 32 and leaves.chained % 32 == 0
+    before = cl.LAUNCHES["leaf_ragged"]
+    got = dispatch.hash_ragged(leaves)
+    assert cl.LAUNCHES["leaf_ragged"] == before + 1
+    assert plain.digests_to_bytes(got.cpu().numpy().view(np.uint32)) == _leaf_golden(keys, values)
+
+
+def test_ragged_schedule_fills_the_lanes(dev):
+    """The set made on the card has the CPU set's order and counts, at least
+    90% of its lane slots compress, and its long groups run as chains."""
+    keys, values = _ragged_records("etc")
+    on_card = ragged.RaggedLeaves.pack(keys, values, dev)
+    on_cpu = ragged.RaggedLeaves.pack(keys, values, "cpu")
+    assert torch.equal(on_card.order.cpu(), on_cpu.order)
+    assert (on_card.total_blocks, on_card.lane_slots) == (on_cpu.total_blocks, on_cpu.lane_slots)
+    assert on_card.total_blocks / on_card.lane_slots >= 0.9
+    assert on_card.chained > 0 and on_cpu.chained == 0
+    assert torch.equal(dispatch.hash_ragged(on_card).cpu(), dispatch.hash_ragged(on_cpu))
+
+
+def test_ragged_wrapper_takes_the_whole_order_only(dev):
+    """An order of fewer or more positions than leaves is refused before any
+    launch: every row of the result is a digest."""
+    leaves = ragged.RaggedLeaves.pack([b"a", b"b", b"c"], [b"", b"x", b"y" * 100], dev)
+    before = dict(cl.LAUNCHES)
+    for order in (leaves.order[:2], torch.cat([leaves.order, leaves.order[:1]])):
+        with pytest.raises(ValueError, match="positions for 3 leaves"):
+            sc.leaf_ragged_cuda(leaves.blocks, leaves.offsets, order.contiguous(),
+                                leaves.chained)
+    assert cl.LAUNCHES == before
+
+
+def test_ragged_empty_set_launches_nothing(dev):
+    leaves = ragged.RaggedLeaves.pack([], [], dev)
+    before = dict(cl.LAUNCHES)
+    assert dispatch.hash_ragged(leaves).shape == (0, 8)
+    assert cl.LAUNCHES == before
+
+
+def test_ragged_engine_on_card_matches_cpu(dev):
+    keys, values = _ragged_records("long_chain")
+    rng = np.random.default_rng(1)
+    digests = torch.from_numpy(rng.integers(0, 2**32, (4, len(keys), 8), dtype=np.uint64)
+                               .astype(np.uint32).view(np.int32))
+    digests[1:] = digests[0]
+    digests[2, 5, 3] ^= 1
+    present = torch.ones((4, len(keys)), dtype=torch.bool)
+    present[3, 9] = False
+    want = te.anti_entropy_forward(ragged.RaggedLeaves.pack(keys, values, "cpu"), None,
+                                   digests, present, device="cpu")
+    got = te.anti_entropy_forward(ragged.RaggedLeaves.pack(keys, values, dev), None,
+                                  digests.to(dev), present.to(dev), device=dev)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

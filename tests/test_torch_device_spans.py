@@ -241,6 +241,56 @@ def test_no_diff_runs_beside_on_the_cpu():
     assert overlapped() == before
 
 
+def _ragged_inputs(seed=7):
+    """A ragged set of 40 leaves of 1 to 5 blocks with the digests and
+    presence of ``_inputs``."""
+    from merklekv_tpu_torch.merkle.ragged import RaggedLeaves
+
+    rng = np.random.RandomState(seed)
+    keys = [b"rk%03d" % i for i in range(40)]
+    values = [bytes(rng.randint(0, 256, rng.randint(0, 300), dtype=np.uint8)) for _ in keys]
+    _b, _nb, digests, present = _inputs(n=40, seed=seed)
+    return RaggedLeaves.pack(keys, values, CPU), digests, present
+
+
+def _lane_counters():
+    counters = tracing.get_metrics().snapshot()["counters"]
+    return counters.get("device.ae_leaf_blocks", 0), counters.get("device.ae_leaf_lane_slots", 0)
+
+
+def test_a_ragged_cycle_records_the_same_spans_and_counts_its_lanes():
+    """A ragged set hashes inside ``ae.leaf``: the cycle's spans are the
+    padded cycle's. Each step adds the set's blocks and lane slots to the
+    two counters once, spans on or off."""
+    leaves, digests, present = _ragged_inputs()
+    before = _lane_counters()
+    off = te.anti_entropy_forward(leaves, None, digests, present, device=CPU)
+    assert tracing.device_spans() == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = te.anti_entropy_forward(leaves, None, digests, present, device=CPU)
+    assert [s["name"] for s in tracing.device_spans()] == ["ae.cycle", *PHASES]
+    for a, b in zip(off, on):
+        assert torch.equal(a, b)
+    after = _lane_counters()
+    assert after[0] - before[0] == 2 * leaves.total_blocks
+    assert after[1] - before[1] == 2 * leaves.lane_slots
+    assert leaves.total_blocks <= leaves.lane_slots
+
+
+def test_the_node_paths_count_their_ragged_hashes():
+    """``leaf_digests`` (the node's sync leaf map, the snapshot root, the
+    tree engine) packs ragged and counts its hash like the step does; a
+    benchmark's own call of ``dispatch.hash_ragged`` counts nothing."""
+    leaves, _d, _p = _ragged_inputs(seed=8)
+    before = _lane_counters()
+    dispatch.hash_ragged(leaves)
+    assert _lane_counters() == before
+    keys, values = [b"a", b"b" * 200], [b"", b"v" * 5000]  # 1 and 82 blocks
+    te.leaf_digests(keys, values, device=CPU)
+    after = _lane_counters()
+    assert after[0] - before[0] == 1 + 82 and after[1] - before[1] == 32 * 82
+
+
 def test_no_span_outside_the_cycle():
     """The layers the cycle calls record nothing of their own: a caller of
     them outside the cycle (the serving mirror, a benchmark's probe) leaves
