@@ -99,7 +99,12 @@ Phases, one line each (an uncaught failure exits nonzero):
               plain version, bit for bit, after phase 13 (a); its device
               time runs from the first kernel's start to the last one's
               end, and its bound counts a compression a block and 64 B a
-              block, 8 B an offset and 32 B a digest.
+              block, 8 B an offset and 32 B a digest. The SHA-256 rows
+              (``leaf``, ``node_level``, ``node_pairs``, ``path_rehash``,
+              ``promotion_chain``, ``leaf_ragged``) carry their kernels'
+              SASS counts of SHF, LOP3, IADD3, IMAD and LDG, spills and
+              registers (``sass``, ``tools/sha256_pipes.py``): which pipe
+              their adds issue to.
 8. node     — the node entry, at 1M keys (config 4) and only through what a
               user runs. 8a: ``python -m merklekv_tpu_torch`` spawned with
               replication on the in-process bus and anti-entropy engine
@@ -3278,6 +3283,28 @@ def phase_multihost(seed: int, shd: dict, timeout: float = MULTIHOST_TIMEOUT_S) 
                           for i in range(len(outs[0]["diff2d"]))]}
 
 
+def sha256_sass() -> dict:
+    """The SASS of the library's SHA-256 kernels (``tools/sha256_pipes.py``):
+    per kernel the counts of SHF, LOP3, IADD3, IMAD (every form) and LDG,
+    its spills and its registers, which say what pipe its adds issue to."""
+    import importlib.util
+    from pathlib import Path
+
+    from merklekv_tpu_torch.ops.cuda_lib import BUILD_DIR, build_kernels
+
+    path = Path(__file__).resolve().parent / "tools" / "sha256_pipes.py"
+    spec = importlib.util.spec_from_file_location("sha256_pipes", path)
+    pipes = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pipes)
+    k = build_kernels()
+    return pipes.kernel_code(k.path, k.build_log, BUILD_DIR / "sass")
+
+
+def sass_text(st: dict) -> str:
+    return (", ".join(f"{c} {st.get(c)}" for c in ("SHF", "LOP3", "IADD3", "IMAD", "LDG", "STL"))
+            + f", {st.get('registers')} registers")
+
+
 def path_work(pos: np.ndarray, depth: int) -> dict:
     """What the path-rehash kernel must do for these sorted positions on a
     2^depth-leaf tree: distinct touched internal nodes (each hashed once)
@@ -3391,6 +3418,7 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
                 f"{f['ghz']:.3f} GHz from its own timers; nvidia-smi clocks.sm "
                 f"{f['clocks_sm_mhz']} MHz")
     sweep = node_pairs_sweep(dev, rng, floors["node_pairs"]["ms"])
+    code = sha256_sass()
     out = []
     for row, (ms, seen) in zip(rows, measured):
         name, src, repl, kname, kern, ref, nbytes, logic, adds, floor, shape, reps = row
@@ -3400,16 +3428,18 @@ def phase_kernel_times(dev, rng, blocks, nblocks, errs, launches) -> list:
         b_ms, by = bound_ms(nbytes, logic, adds), bound_by(nbytes, logic, adds)
         floor_txt = "" if floor is None else (
             f", measured serial floor {floor:.4f} ms ({ms / floor:.2f}x)")
+        st = code.get(kname)
+        sass_txt = f"; SASS {sass_text(st)}" if st else ""
         log(f"[times] {name} at {shape}: device {ms:.4f} ms per launch ({seen} of {reps} "
             f"launches profiled; back-to-back calls "
             f"{call_ms:.4f} ms; plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms by {by}: {nbytes} B, "
-            f"{logic} shift/logic + {adds} add ops{floor_txt})")
+            f"{logic} shift/logic + {adds} add ops{floor_txt}{sass_txt})")
         out.append({
             "name": name, "route": "cuda", "source": f"merklekv_tpu_torch/csrc/{src}",
             "replaces": repl, "launches": launches[LAUNCH_KEY.get(name, name)],
             "max_abs_err": errs[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None, "serial_floor_ms": floor,
+            "library_ms": None, "serial_floor_ms": floor, "sass": st,
         })
         if name == "node_pairs":
             out[-1]["sweep"] = [{k: r[k] for k in ("p", "ms", "bound_ms")} for r in sweep]
@@ -3455,17 +3485,20 @@ def ragged_kernel_row(dev, rng: np.random.Generator, errs: dict, launches: dict)
     nbytes = t_blocks * 64 + (etc.n + 1) * 8 + etc.n * 32
     logic, adds = t_blocks * LOGIC_MSG_BLOCK, t_blocks * ADDS_MSG_BLOCK
     b_ms, by = bound_ms(nbytes, logic, adds), bound_by(nbytes, logic, adds)
+    code = sha256_sass()
+    sass = {k: code.get(k) for k in ("chain_kernel", "bulk_kernel")}
     log(f"[times] leaf_ragged at {etc.n} ETC leaves, {t_blocks} blocks, longest {etc.longest}, "
         f"{etc.chained} chained, lane fill {100 * t_blocks / etc.lane_slots:.4f}%: == plain bit "
         f"for bit; device {ms:.4f} ms per launch, first kernel's start to last one's end ({seen} "
         f"of 10 launches profiled; back-to-back calls {call_ms:.4f} ms; plain {plain_ms:.3f} ms; "
-        f"bound {b_ms:.4f} ms by {by}: {nbytes} B, {logic} shift/logic + {adds} add ops)")
+        f"bound {b_ms:.4f} ms by {by}: {nbytes} B, {logic} shift/logic + {adds} add ops; SASS "
+        + "; ".join(f"{k} {sass_text(st)}" for k, st in sass.items() if st) + ")")
     return {
         "name": "leaf_ragged", "route": "cuda", "source": "merklekv_tpu_torch/csrc/ragged_leaves.cu",
         "replaces": "none: the JAX package pads every leaf to the longest",
         "launches": launches["leaf_ragged"], "max_abs_err": errs["leaf_ragged"],
         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-        "library_ms": None, "serial_floor_ms": None,
+        "library_ms": None, "serial_floor_ms": None, "sass": sass,
     }
 
 

@@ -15,8 +15,10 @@
 // costs terabytes, and one thread a leaf in key order keeps a warp running
 // as long as its longest lane: 18% of its lane-compressions do work.
 //
-// What bounds it: the integer pipes, as for leaf_kernel (1024 INT32-lane ops
-// a compression against 64 bytes read), plus one serial chain: SHA-256 is
+// What bounds it: the integer pipes, as for leaf_kernel (1024 shift/logic
+// lane-ops a compression against 64 bytes read; bulk_kernel, like
+// leaf_kernel, adds in the FMA form and runs its message block rolled,
+// sha256_core.cuh), plus one serial chain: SHA-256 is
 // serial within a message, so the longest leaf is as many dependent
 // compressions as it has blocks, about 1.4 us each for a warp alone on an
 // SM sub-partition (SMSP), and k times that for a warp that shares its SMSP
@@ -39,7 +41,9 @@
 //   few bytes of dynamic shared memory keep a bulk block off a chain's SM
 //   even if the hardware counted no reserve for a block without any;
 // - a chain, alone on its SMSP, keeps its next two blocks' loads in flight
-//   while it compresses one, since no other warp there hides them.
+//   while it compresses one, since no other warp there hides them, and adds
+//   with plain `+` (IADD3): a lone warp waits out each dependent add, and
+//   IADD3's latency is the shorter.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -49,6 +53,9 @@
 namespace {
 
 constexpr int kBulkThreads = 256;
+// bulk_kernel's blocks an SM (48 registers a thread at most), as
+// leaf_kernel's: mkv_ragged_shape reads it back for the set's schedule.
+constexpr int kBulkBlocks = 5;
 constexpr int kChainThreads = 128;
 constexpr size_t kBulkSmem = 16;
 
@@ -74,7 +81,7 @@ __device__ __forceinline__ void store_digest(uint4* __restrict__ out, int32_t le
 // the SMSP hide the load.
 __device__ __forceinline__ void hash_leaf(const uint4* __restrict__ blocks,
                                           const int64_t* __restrict__ offsets, int32_t leaf,
-                                          uint4* __restrict__ out) {
+                                          uint4* __restrict__ out, MkvFmaAdd add) {
   const int64_t lo = offsets[leaf], hi = offsets[leaf + 1];
   uint32_t s[8];
   mkv_iv(s);
@@ -83,7 +90,7 @@ __device__ __forceinline__ void hash_leaf(const uint4* __restrict__ blocks,
     load_block(blocks + 4 * b, q);
     uint32_t w[16];
     words_of(q, w);
-    mkv_compress(s, w);
+    mkv_compress_rolled(s, w, add);
   }
   store_digest(out, leaf, s);
 }
@@ -121,12 +128,13 @@ chain_kernel(const uint4* __restrict__ blocks, const int64_t* __restrict__ offse
   if (i < chained) hash_leaf_ahead(blocks, offsets, order[i], out);
 }
 
-// Positions [first, n) of order, one leaf a thread.
-__global__ void __launch_bounds__(kBulkThreads)
+// Positions [first, n) of order, one leaf a thread; one == 1 (MkvFmaAdd).
+__global__ void __launch_bounds__(kBulkThreads, kBulkBlocks)
 bulk_kernel(const uint4* __restrict__ blocks, const int64_t* __restrict__ offsets,
-            const int32_t* __restrict__ order, uint4* __restrict__ out, int64_t first, int64_t n) {
+            const int32_t* __restrict__ order, uint4* __restrict__ out, int64_t first, int64_t n,
+            uint32_t one) {
   const int64_t i = first + static_cast<int64_t>(blockIdx.x) * kBulkThreads + threadIdx.x;
-  if (i < n) hash_leaf(blocks, offsets, order[i], out);
+  if (i < n) hash_leaf(blocks, offsets, order[i], out, MkvFmaAdd{one});
 }
 
 }  // namespace
@@ -171,7 +179,7 @@ int mkv_leaf_ragged(const void* blocks, const void* offsets, const void* order, 
     cfg.attrs = attr;
     cfg.numAttrs = chained > 0 ? 1 : 0;
     const int64_t first = chained;
-    cudaError_t err = cudaLaunchKernelEx(&cfg, bulk_kernel, b, off, ord, o, first, n);
+    cudaError_t err = cudaLaunchKernelEx(&cfg, bulk_kernel, b, off, ord, o, first, n, 1u);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());

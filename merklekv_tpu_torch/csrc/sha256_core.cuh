@@ -10,19 +10,22 @@
 // reads the same word in the same cycle (a broadcast).
 //
 // Under a host C++ compiler the same functions build as plain inline host
-// code (no CUDA keywords), so the round math and both constant tables can
-// be checked against hashlib without a GPU (tests/test_torch_csrc_core.py).
+// code (no CUDA keywords), so the round math, both ways of adding and both
+// constant tables can be checked against hashlib without a GPU
+// (tests/test_torch_csrc_core.py).
 
 #pragma once
 #include <stdint.h>
 
 #ifdef __CUDACC__
 #define MKV_FN __device__ __forceinline__
+#define MKV_MEMBER __device__ __forceinline__
 // static: each source that includes this header keeps its own copy of the
 // tables, so the sources link into one library without a clash.
 #define MKV_CONST static __constant__
 #else
 #define MKV_FN static inline
+#define MKV_MEMBER inline
 #define MKV_CONST static const
 #endif
 
@@ -72,48 +75,116 @@ MKV_FN void mkv_iv(uint32_t s[8]) {
   s[4] = 0x510e527fu; s[5] = 0x9b05688cu; s[6] = 0x1f83d9abu; s[7] = 0x5be0cd19u;
 }
 
+// How the compression adds: the template argument of mkv_round,
+// mkv_compress, mkv_compress_rolled and mkv_compress_node_pad. Both give the
+// same sums mod 2^32 and differ only in the instructions ptxas issues.
+//
+// MkvAluAdd, the default: plain `+`. ptxas fuses up to three inputs into one
+// IADD3 on the INT32 ALU and issues some adds as IMAD.IADD itself (241 and
+// 119 of a message block's adds in the padded leaf kernel). The kernels
+// bound by one warp's dependent chain (a warp alone on its SMSP) keep it:
+// three inputs an add leave fewer dependent instructions from e to the next e.
+struct MkvAluAdd {
+  MKV_MEMBER uint32_t operator()(uint32_t a, uint32_t b) const { return a + b; }
+};
+
+// MkvFmaAdd: every add is mad.lo.u32 a * one + b, with one == 1 handed in as
+// a kernel argument, so ptxas cannot fold the multiply back into an IADD3
+// (it does for a literal 1) and issues IMAD on the FMA pipe; the round
+// constant comes in as IMAD's constant-bank operand. The ALU then issues only
+// shifts and logic, the FMA pipe the 600 two-input adds of a block. The
+// kernels whose grids are far wider than the card take it together with
+// mkv_compress_rolled: apart, neither made them faster (PERF.md). On the host
+// it is the same multiply-add in plain C++.
+struct MkvFmaAdd {
+  uint32_t one;
+  MKV_MEMBER uint32_t operator()(uint32_t a, uint32_t b) const {
+#ifdef __CUDA_ARCH__
+    uint32_t d;
+    asm("mad.lo.u32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(one), "r"(b));
+    return d;
+#else
+    return a * one + b;
+#endif
+  }
+};
+
 // One round over the working variables v[0..7] = a..h; kw = K[t] + W[t].
 // The rename a..h -> new a, a..g is a register relabelling after unrolling.
-MKV_FN void mkv_round(uint32_t v[8], uint32_t kw) {
+template <class Add = MkvAluAdd>
+MKV_FN void mkv_round(uint32_t v[8], uint32_t kw, Add add = Add()) {
   const uint32_t a = v[0], b = v[1], c = v[2], d = v[3];
   const uint32_t e = v[4], f = v[5], g = v[6], h = v[7];
   const uint32_t s1 = mkv_rotr(e, 6) ^ mkv_rotr(e, 11) ^ mkv_rotr(e, 25);
   const uint32_t ch = (e & f) ^ (~e & g);
-  const uint32_t t1 = h + s1 + ch + kw;
+  const uint32_t t1 = add(add(add(h, s1), ch), kw);
   const uint32_t s0 = mkv_rotr(a, 2) ^ mkv_rotr(a, 13) ^ mkv_rotr(a, 22);
   const uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
-  v[7] = g; v[6] = f; v[5] = e; v[4] = d + t1;
-  v[3] = c; v[2] = b; v[1] = a; v[0] = t1 + s0 + maj;
+  v[7] = g; v[6] = f; v[5] = e; v[4] = add(d, t1);
+  v[3] = c; v[2] = b; v[1] = a; v[0] = add(add(t1, s0), maj);
+}
+
+// Message schedule word t >= 16 into the rolling window: w[t & 15] becomes
+// W[t] from W[t-16], W[t-15], W[t-7] and W[t-2], all still in the window.
+template <class Add>
+MKV_FN void mkv_schedule(uint32_t w[16], int t, Add add) {
+  const uint32_t wm15 = w[(t - 15) & 15], wm2 = w[(t - 2) & 15];
+  const uint32_t s0 = mkv_rotr(wm15, 7) ^ mkv_rotr(wm15, 18) ^ (wm15 >> 3);
+  const uint32_t s1 = mkv_rotr(wm2, 17) ^ mkv_rotr(wm2, 19) ^ (wm2 >> 10);
+  w[t & 15] = add(add(add(w[t & 15], s0), w[(t - 7) & 15]), s1);
 }
 
 // One compression of the 16-word block w (overwritten: it is the rolling
 // schedule window) into state s.
-MKV_FN void mkv_compress(uint32_t s[8], uint32_t w[16]) {
+template <class Add = MkvAluAdd>
+MKV_FN void mkv_compress(uint32_t s[8], uint32_t w[16], Add add = Add()) {
   uint32_t v[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) v[i] = s[i];
 #pragma unroll
   for (int t = 0; t < 64; ++t) {
-    if (t >= 16) {
-      const uint32_t wm15 = w[(t - 15) & 15], wm2 = w[(t - 2) & 15];
-      const uint32_t s0 = mkv_rotr(wm15, 7) ^ mkv_rotr(wm15, 18) ^ (wm15 >> 3);
-      const uint32_t s1 = mkv_rotr(wm2, 17) ^ mkv_rotr(wm2, 19) ^ (wm2 >> 10);
-      w[t & 15] = w[t & 15] + s0 + w[(t - 7) & 15] + s1;
-    }
-    mkv_round(v, kSha256K[t] + w[t & 15]);
+    if (t >= 16) mkv_schedule(w, t, add);
+    mkv_round(v, add(kSha256K[t], w[t & 15]), add);
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] += v[i];
+  for (int i = 0; i < 8; ++i) s[i] = add(s[i], v[i]);
 }
 
-// The second compression of a 64-byte (node) message: the constant padding
-// block, with its K[t] + W[t] already folded into kNodePadKW.
-MKV_FN void mkv_compress_node_pad(uint32_t s[8]) {
+// The same compression with rounds 16-63 as three trips of a loop over 16
+// unrolled rounds (schedule word, then round): every window index stays a
+// compile-time constant, the a..h relabelling comes back to where it began
+// after each trip, and K[t0 + t] is a warp-uniform load. Half the
+// instructions of mkv_compress's straight line (leaf_kernel in the FMA
+// form: 824 against 1736), and the wide kernels that add in the FMA form
+// run faster with it: unrolled, the FMA form gained them nothing (PERF.md).
+template <class Add = MkvAluAdd>
+MKV_FN void mkv_compress_rolled(uint32_t s[8], uint32_t w[16], Add add = Add()) {
   uint32_t v[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) v[i] = s[i];
 #pragma unroll
-  for (int t = 0; t < 64; ++t) mkv_round(v, kNodePadKW[t]);
+  for (int t = 0; t < 16; ++t) mkv_round(v, add(kSha256K[t], w[t]), add);
+#pragma unroll 1
+  for (int t0 = 16; t0 < 64; t0 += 16) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] += v[i];
+    for (int t = 0; t < 16; ++t) {
+      mkv_schedule(w, t + 16, add);
+      mkv_round(v, add(kSha256K[t0 + t], w[t]), add);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = add(s[i], v[i]);
+}
+
+// The second compression of a 64-byte (node) message: the constant padding
+// block, with its K[t] + W[t] already folded into kNodePadKW.
+template <class Add = MkvAluAdd>
+MKV_FN void mkv_compress_node_pad(uint32_t s[8], Add add = Add()) {
+  uint32_t v[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) v[i] = s[i];
+#pragma unroll
+  for (int t = 0; t < 64; ++t) mkv_round(v, kNodePadKW[t], add);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) s[i] = add(s[i], v[i]);
 }

@@ -18,21 +18,29 @@
 // carried over. Here each thread hashes one message, reading its own
 // row-major row with 16-byte vector loads.
 //
-// What bounds them on an H100: the integer ALU, not HBM. With 3-input
+// What bounds them on an H100: integer instructions, not HBM. With 3-input
 // LOP3/IADD3 fusion a round needs 6 funnel shifts + 4 LOP3 (the two Sigmas,
-// Ch, Maj) + 4 adds, a schedule word 6 shifts + 2 LOP3 + 2 adds. Shifts and
-// logic run only on the 64 INT32 lanes of an SM (132 SMs at 1.98 GHz =
-// 16.7 Tops/s); the adds can issue to the FMA pipe as IMAD. So a one-block
-// compression is 64 x 10 + 48 x 8 = 1024 INT32-lane ops (+ 360 adds), the
-// schedule-free pad compression 640 (+ 264). A leaf is 1024 ops for 100
-// bytes of traffic (64 B block + 4 B count + 32 B digest), a node 1664 ops
-// for 96 bytes: 10-17 ops per byte against the card's 16.7e12 / 3.35e12 = 5
-// ops per byte of HBM rate. What the design does about it: keep every
-// operand in registers (state, 16-word rolling schedule, fully unrolled
-// rounds with compile-time indices), rotr as one funnel shift, K and the pad
+// Ch, Maj) + 4 adds, a schedule word 6 shifts + 2 LOP3 + 2 adds. So a
+// one-block compression is 64 x 10 + 48 x 8 = 1024 shift/logic ops (+ 360
+// adds), the schedule-free pad compression 640 (+ 264). A leaf is 1024 ops
+// for 100 bytes of traffic (64 B block + 4 B count + 32 B digest), a node
+// 1664 ops for 96 bytes. Counted at 64 INT32 lanes an SM (132 SMs at 1.98
+// GHz = 16.7 Tops/s, the benchmark's bound) that is 10-17 ops per byte
+// against the card's 16.7e12 / 3.35e12 = 5 ops per byte of HBM rate; but
+// each SM sub-partition issues SHF, LOP3 and IADD3 at about one warp
+// instruction a cycle (tools/pipe_rates.cu), so the kernels run at the pace
+// their warps issue, not at a pipe's limit. What the design does about it:
+// keep every operand in registers (state, 16-word rolling schedule, rounds
+// with compile-time indices), rotr as one funnel shift, K and the pad
 // block's K+W in constant memory (a warp-wide broadcast operand, no extra
 // instruction), fold the pad block's schedule away entirely, and touch HBM
-// once per input and output word.
+// once per input and output word. leaf_kernel and node_level_kernel add in
+// the FMA form (MkvFmaAdd, sha256_core.cuh), each taking the 1 it multiplies
+// by as its last argument, with their message block rolled
+// (mkv_compress_rolled): the FMA form alone left them where plain `+` had
+// (241 IADD3 and 119 IMAD.IADD a block) as its unrolled block grew to 1736
+// instructions; with the rolled block (824) the leaf hash at [10M, 17]
+// takes 9% less time and a [10M, 8] level 4-8% less (PERF.md).
 //
 // A launch too small to fill the card has another bound: one node hash is
 // about 2,300 warp instructions through one SM sub-partition's (SMSP's)
@@ -60,6 +68,9 @@ namespace {
 // on levels of millions of rows. node_pairs_kernel's shape is
 // mkv_pairs_shape's (node_pairs.cuh).
 constexpr int kThreads = 256;
+// leaf_kernel's blocks an SM: 48 registers a thread at most, so 4 blocks
+// still fit beside the diff's co-resident block (csrc/diff_kernels.cuh).
+constexpr int kLeafBlocks = 5;
 
 __device__ __forceinline__ void load16(const uint4* __restrict__ src, uint32_t w[16]) {
 #pragma unroll
@@ -77,11 +88,12 @@ __device__ __forceinline__ void store8(uint4* __restrict__ dst, const uint32_t s
 // blocks [n, nblk, 16] u32 (4 uint4 per block), nblocks [n] i32, out [n, 8].
 // Only blocks b < nblocks[i] are compressed, which is the TPU kernel's
 // compress-then-mask result; a message with nblocks <= 0 keeps the IV.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kLeafBlocks)
 leaf_kernel(const uint4* __restrict__ blocks, const int32_t* __restrict__ nblocks,
-            uint4* __restrict__ out, int64_t n, int32_t nblk) {
+            uint4* __restrict__ out, int64_t n, int32_t nblk, uint32_t one) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= n) return;
+  const MkvFmaAdd add{one};
   uint32_t s[8];
   mkv_iv(s);
   int32_t nb = nblocks[i];
@@ -90,7 +102,7 @@ leaf_kernel(const uint4* __restrict__ blocks, const int32_t* __restrict__ nblock
   for (int32_t b = 0; b < nb; ++b) {
     uint32_t w[16];
     load16(row + 4 * b, w);
-    mkv_compress(s, w);
+    mkv_compress_rolled(s, w, add);
   }
   store8(out + 2 * i, s);
 }
@@ -99,14 +111,16 @@ leaf_kernel(const uint4* __restrict__ blocks, const int32_t* __restrict__ nblock
 // 64-byte message (left || right), read with four 16-byte loads. No
 // even/odd split of the level is materialised.
 __global__ void __launch_bounds__(kThreads)
-node_level_kernel(const uint4* __restrict__ cur, uint4* __restrict__ out, int64_t p) {
+node_level_kernel(const uint4* __restrict__ cur, uint4* __restrict__ out, int64_t p,
+                  uint32_t one) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   if (i >= p) return;
+  const MkvFmaAdd add{one};
   uint32_t w[16], s[8];
   load16(cur + 4 * i, w);
   mkv_iv(s);
-  mkv_compress(s, w);
-  mkv_compress_node_pad(s);
+  mkv_compress_rolled(s, w, add);
+  mkv_compress_node_pad(s, add);
   store8(out + 2 * i, s);
 }
 
@@ -144,14 +158,14 @@ int mkv_leaf_digests(const void* blocks, const void* nblocks, void* out,
   if (n <= 0) return 0;
   leaf_kernel<<<grid_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint4*>(blocks), static_cast<const int32_t*>(nblocks),
-      static_cast<uint4*>(out), n, nblk);
+      static_cast<uint4*>(out), n, nblk, 1u);
   return static_cast<int>(cudaGetLastError());
 }
 
 int mkv_node_level(const void* cur, void* out, int64_t p, void* stream) {
   if (p <= 0) return 0;
   node_level_kernel<<<grid_for(p), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(cur), static_cast<uint4*>(out), p);
+      static_cast<const uint4*>(cur), static_cast<uint4*>(out), p, 1u);
   return static_cast<int>(cudaGetLastError());
 }
 

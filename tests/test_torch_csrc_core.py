@@ -8,7 +8,9 @@ compiles them with the host C++ compiler into a small library and holds
 against ``hashlib``:
 
 - the compression, the node hash (with the folded padding-block constants)
-  and the IV, and the constant tables against the torch package's fold;
+  and the IV, each in both ways of adding (plain ``+`` and the FMA form's
+  multiply-add by one) and with the message block unrolled or rolled, and
+  the constant tables against the torch package's fold;
 - the path rehash's phases (``mkv_path_*``: the cut, the walk of each chunk
   in its block, the one arrival per block, the last block's shared nodes
   and top levels), run for every block in a random order of blocks, phases
@@ -58,12 +60,28 @@ static std::vector<std::pair<int32_t, int64_t>> g_hashed;
 #include "sha256_core.cuh"
 #include "merkle_paths.cuh"
 extern "C" void host_iv(uint32_t* s) { mkv_iv(s); }
-extern "C" void host_compress(uint32_t* s, const uint32_t* block) {
-  uint32_t w[16]; memcpy(w, block, sizeof w); mkv_compress(s, w);
+// fma_one: 0 for the plain form (MkvAluAdd), else the FMA form's multiplier
+// (MkvFmaAdd{1}), handed in at run time as the kernels take it; rolled:
+// mkv_compress_rolled in place of mkv_compress.
+template <class Add>
+static void compress_as(uint32_t* s, uint32_t* w, int rolled, Add add) {
+  if (rolled) mkv_compress_rolled(s, w, add); else mkv_compress(s, w, add);
 }
-extern "C" void host_node(const uint32_t* msg16, uint32_t* out) {
+extern "C" void host_compress(uint32_t* s, const uint32_t* block, uint32_t fma_one,
+                              int rolled) {
+  uint32_t w[16]; memcpy(w, block, sizeof w);
+  if (fma_one) compress_as(s, w, rolled, MkvFmaAdd{fma_one});
+  else compress_as(s, w, rolled, MkvAluAdd{});
+}
+extern "C" void host_node(const uint32_t* msg16, uint32_t* out, uint32_t fma_one, int rolled) {
   uint32_t w[16]; memcpy(w, msg16, sizeof w);
-  mkv_iv(out); mkv_compress(out, w); mkv_compress_node_pad(out);
+  mkv_iv(out);
+  if (fma_one) {
+    const MkvFmaAdd add{fma_one};
+    compress_as(out, w, rolled, add); mkv_compress_node_pad(out, add);
+  } else {
+    compress_as(out, w, rolled, MkvAluAdd{}); mkv_compress_node_pad(out);
+  }
 }
 static MkvLevels levels_of(uint32_t* const* rows, int32_t depth) {
   MkvLevels L;
@@ -314,8 +332,9 @@ def core(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     ptr = ctypes.c_void_p
     lib.host_iv.argtypes = [ptr]
-    lib.host_compress.argtypes = [ptr, ptr]
-    lib.host_node.argtypes = [ptr, ptr]
+    u32 = ctypes.c_uint32
+    lib.host_compress.argtypes = [ptr, ptr, u32, ctypes.c_int]
+    lib.host_node.argtypes = [ptr, ptr, u32, ctypes.c_int]
     i32, i64 = ctypes.c_int32, ctypes.c_int64
     u64 = ctypes.c_uint64
     lib.host_path_rehash.argtypes = [ptr, i32, ptr, ptr, ptr, i32, ptr, i32, i32, i32, u64]
@@ -354,25 +373,42 @@ def test_iv(core):
     np.testing.assert_array_equal(s, _IV)
 
 
-@pytest.mark.parametrize("length", [0, 1, 55, 56, 63, 64, 100, 200])
-def test_compress_chain_vs_hashlib(core, length):
-    """Random bytes (top bits set in many words), one to four blocks."""
-    msg = np.random.RandomState(length).bytes(length)
+# How the compression adds (csrc/sha256_core.cuh): 0 is plain `+`
+# (MkvAluAdd), 1 the FMA form's multiply-add by one (MkvFmaAdd); and
+# whether its rounds 16-63 run as a loop (mkv_compress_rolled).
+FORMS = {"alu": 0, "fma": 1}
+ROLLED = {"unrolled": 0, "rolled": 1}
+
+
+@pytest.mark.parametrize("rolled", sorted(ROLLED))
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("fill", ["random", "ones"])
+@pytest.mark.parametrize("length", [0, 1, 55, 56, 63, 64, 100, 200, 1015, 1016, 1079])
+def test_compress_chain_vs_hashlib(core, length, fill, form, rolled):
+    """Random bytes (top bits set in many words), or every byte 0xFF so that
+    every message word is 0xFFFFFFFF and the adds carry; one to four blocks,
+    16 and 17 (the 1 KB YCSB leaf's count)."""
+    msg = np.random.RandomState(length).bytes(length) if fill == "random" else b"\xff" * length
     words = _pad(msg)
     s = np.ascontiguousarray(_IV.copy())
     for b in range(len(words) // 16):
         blk = np.ascontiguousarray(words[16 * b : 16 * b + 16])
-        core.host_compress(_p(s), _p(blk))
+        core.host_compress(_p(s), _p(blk), FORMS[form], ROLLED[rolled])
     assert s.astype(">u4").tobytes() == hashlib.sha256(msg).digest()
 
 
-def test_node_hash_vs_hashlib(core):
+@pytest.mark.parametrize("rolled", sorted(ROLLED))
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("fill", ["random", "ones"])
+def test_node_hash_vs_hashlib(core, fill, form, rolled):
+    """The message block and the folded padding block, on random children
+    or on children of 0xFFFFFFFF words."""
     rng = np.random.RandomState(7)
-    for _ in range(64):
-        msg = rng.bytes(64)
+    for _ in range(64 if fill == "random" else 1):
+        msg = rng.bytes(64) if fill == "random" else b"\xff" * 64
         w = np.frombuffer(msg, ">u4").astype(np.uint32)
         out = np.zeros(8, np.uint32)
-        core.host_node(_p(np.ascontiguousarray(w)), _p(out))
+        core.host_node(_p(np.ascontiguousarray(w)), _p(out), FORMS[form], ROLLED[rolled])
         assert out.astype(">u4").tobytes() == hashlib.sha256(msg).digest()
 
 

@@ -94,6 +94,89 @@ def test_node_kernels_match_hashlib(dev):
     assert plain.digests_to_bytes(got.cpu().numpy().view(np.uint32)) == want
 
 
+# ------------------------------------------- the adds on the FMA pipe
+# leaf_kernel, node_level_kernel and bulk_kernel add in the FMA form
+# (csrc/sha256_core.cuh, MkvFmaAdd): held to hashlib and the plain versions
+# at the block counts and widths where their loops and tails turn, and on
+# words of 0xFFFFFFFF, where every add carries.
+
+_IV_BYTES = np.asarray(plain._IV, dtype=np.uint32).astype(">u4").tobytes()
+
+
+def _padded(msg: bytes) -> np.ndarray:
+    """``msg`` padded as FIPS 180-4 says, as [blocks, 16] uint32 words."""
+    padded = msg + b"\x80" + b"\x00" * ((55 - len(msg)) % 64) + (8 * len(msg)).to_bytes(8, "big")
+    return np.frombuffer(padded, ">u4").astype(np.uint32).reshape(-1, 16)
+
+
+def _message(rng, nb: int, ones: bool) -> bytes:
+    """A message whose padding takes ``nb`` >= 1 blocks: random bytes, or
+    every byte 0xFF."""
+    length = int(rng.randint(max(0, 64 * nb - 72), 64 * nb - 8))
+    return b"\xff" * length if ones else rng.bytes(length)
+
+
+@pytest.mark.parametrize("nb", [0, 1, 16, 17])
+def test_leaf_kernel_matches_hashlib_in_padded_rows(dev, nb):
+    """Rows of ``nb`` blocks (every seventh row another count) in [n, 18, 16]
+    with random words past each row's count, random and 0xFF messages: each
+    row is hashlib's digest of its message, the IV at 0 blocks, and the
+    plain version's row."""
+    rng = np.random.RandomState(nb)
+    n, width = 300, 18
+    counts = np.full(n, nb, dtype=np.int32)
+    counts[::7] = rng.randint(0, width, size=len(counts[::7]))
+    blocks = rng.randint(0, 2**32, size=(n, width, 16), dtype=np.uint64).astype(np.uint32)
+    want = []
+    for i, c in enumerate(counts):
+        msg = _message(rng, int(c), ones=i % 3 == 0) if c else None
+        if msg is not None:
+            blocks[i, :c] = _padded(msg)
+        want.append(hashlib.sha256(msg).digest() if msg is not None else _IV_BYTES)
+    bt = torch.from_numpy(blocks.view(np.int32)).to(dev)
+    ct = torch.from_numpy(counts).to(dev)
+    got = sc.leaf_digests_cuda(bt, ct)
+    assert torch.equal(got, plain.sha256_blocks(bt, ct))
+    assert plain.digests_to_bytes(got.cpu().numpy().view(np.uint32)) == want
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 255, 256, 257, 513, 65537])
+def test_node_level_kernel_matches_hashlib_at_odd_and_even_widths(dev, m):
+    """A level of ``m`` rows, its first two of 0xFFFFFFFF words: m // 2
+    parents, each hashlib's digest of its two rows and the plain version's;
+    one row makes no parent and no launch."""
+    cur = _words(m, (m, 8), dev)
+    cur[:2] = -1
+    before = cl.LAUNCHES["node_level"]
+    got = sc.node_level_cuda(cur)
+    assert got.shape == (m // 2, 8)
+    assert cl.LAUNCHES["node_level"] == before + (m >= 2)
+    assert torch.equal(got, plain.sha256_node_level(cur))
+    rows = [r.astype(">u4").tobytes() for r in cur.cpu().numpy().view(np.uint32)]
+    want = [hashlib.sha256(rows[2 * i] + rows[2 * i + 1]).digest() for i in range(m // 2)]
+    assert plain.digests_to_bytes(got.cpu().numpy().view(np.uint32)) == want
+
+
+def test_bulk_kernel_matches_hashlib_on_empty_and_long_leaves(dev):
+    """Every leaf in bulk_kernel (none chained): leaves of 0 blocks (the
+    IV), 1, 17 and 3,000 blocks and 500 of 0 to 39, random and 0xFF
+    messages, each hashlib's digest and the plain version's; the scheduled
+    launch (chains beside the bulk) gives the same rows."""
+    rng = np.random.RandomState(3)
+    counts = [0, 1, 3000, 0, 17, 2, 3000, 1, 0] + [int(c) for c in rng.randint(0, 40, size=500)]
+    msgs = [_message(rng, c, ones=i % 3 == 0) if c else None for i, c in enumerate(counts)]
+    words = np.concatenate([_padded(m) for m in msgs if m is not None])
+    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    leaves = ragged.RaggedLeaves(torch.from_numpy(words.view(np.int32)).to(dev),
+                                 torch.from_numpy(offsets).to(dev))
+    got = sc.leaf_ragged_cuda(leaves.blocks, leaves.offsets, leaves.order, 0)
+    want = plain.sha256_ragged(leaves.blocks, leaves.offsets)
+    assert torch.equal(got, want)
+    assert torch.equal(dispatch.hash_ragged(leaves), want)
+    assert plain.digests_to_bytes(got.cpu().numpy().view(np.uint32)) == [
+        hashlib.sha256(m).digest() if m is not None else _IV_BYTES for m in msgs]
+
+
 def test_launch_counts_and_empty_inputs(dev):
     cl.reset_launch_counts()
     e8 = torch.empty((0, 8), dtype=torch.int32, device=dev)

@@ -155,9 +155,11 @@ def where(lib, left, right, p: int, blocks: int, threads: int) -> dict:
 
 def sass(lib_path: Path, keep: tuple[str, ...], dump_dir: Path) -> dict:
     """Per kernel whose name holds one of ``keep``: its SASS instruction
-    count, the positions of its global loads and a digest of its
-    instructions without their addresses (``cuobjdump -sass``); the whole
+    count, the positions of its global loads, a digest of its instructions
+    without their addresses (``cuobjdump -sass``) and the count of each
+    mnemonic (``ops``: ``IMAD.IADD``, ``SHF.R.W.U32``, ...); the whole
     listing goes to ``dump_dir``."""
+    import collections
     import hashlib
     import re
     import shutil
@@ -178,7 +180,8 @@ def sass(lib_path: Path, keep: tuple[str, ...], dump_dir: Path) -> dict:
         if m:
             name = m.group(1) if any(k in m.group(1) for k in keep) else None
             if name:
-                stats[name] = {"instructions": 0, "ldg_at": [], "digest": hashlib.sha256()}
+                stats[name] = {"instructions": 0, "ldg_at": [], "digest": hashlib.sha256(),
+                               "ops": collections.Counter()}
             continue
         m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_.]+)", ln)
         if name and m:
@@ -187,6 +190,7 @@ def sass(lib_path: Path, keep: tuple[str, ...], dump_dir: Path) -> dict:
             st["instructions"] += 1
             if m.group(2).split(".")[0] == "LDG":
                 st["ldg_at"].append(st["instructions"] - 1)
+            st["ops"][m.group(2)] += 1
     for st in stats.values():
         st["digest"] = st["digest"].hexdigest()[:16]
     return stats
